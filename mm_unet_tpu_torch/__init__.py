@@ -1,0 +1,20 @@
+"""MM-UNet in PyTorch for NVIDIA Hopper (H100, sm_90a).
+
+A port of `mm_unet_tpu` (JAX/Flax/Pallas), which stays beside it as the
+reference. The package mirrors the reference's module paths:
+
+- ``mm_unet_tpu_torch.ops``    — plain PyTorch ops and the two hand-written
+  CUDA kernels of the serving path (`mamba_fused`, `tap_conv`), whose
+  sources live in ``csrc/`` and are built by ``_build`` at first use.
+- ``mm_unet_tpu_torch.models`` — `MM_Net` (eval mode) and its blocks, with
+  the reference's torch module and parameter names.
+- ``mm_unet_tpu_torch.train``  — DiceFocal loss, sliding-window inference
+  and the predictor.
+- ``mm_unet_tpu_torch.evaluate`` — the validation loop.
+- ``mm_unet_tpu_torch.utils.convert`` — JAX variables -> torch state_dict.
+
+Importing the package imports nothing but the standard library; the
+submodules import torch and never jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,115 @@
+"""Shared layers (counterpart of `mm_unet_tpu/models/layers.py`).
+
+The port's modules are NCHW, PyTorch's habit; `nchw_to_nhwc` and
+`nhwc_to_nchw` cross to the NHWC layout of the kernels' public functions.
+
+Compute dtype rule of the reference (`mm_unet._lkw`): a layer built with
+`compute_dtype` (bf16 in the serving configuration) runs its convolution in
+that dtype; without one it runs in the promotion of input and weight dtypes,
+as flax does. Parameters and norm statistics keep their own dtype; norms
+reduce in f32 and return the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """NCHW bilinear resize with align_corners=True (the function the
+    reference builds from two interpolation matrices, `layers.py:67`)."""
+    if tuple(x.shape[2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+
+
+def _cdtype(compute_dtype: Optional[torch.dtype], x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    return compute_dtype or torch.promote_types(x.dtype, w.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = _cdtype(self.compute_dtype, x, self.weight)
+        bias = None if self.bias is None else self.bias.to(cd)
+        return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = _cdtype(self.compute_dtype, x, self.weight)
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.conv_transpose2d(x.to(cd), self.weight.to(cd), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode BatchNorm (running statistics), reduced in f32."""
+
+    def __init__(self, num_features: int, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(num_features, eps=1e-5)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = _cdtype(self.compute_dtype, x, self.weight)
+        y = F.batch_norm(x.float(), self.running_mean.float(), self.running_var.float(),
+                         self.weight.float(), self.bias.float(), False, 0.0, self.eps)
+        return y.to(cd)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm reduced in f32 (eps 1e-5, the torch reference's)."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(num_groups, num_channels, eps=1e-5)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = _cdtype(self.compute_dtype, x, self.weight)
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(cd)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax `lecun_normal`: truncated normal (+-2 sd) with variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        t.mul_(std)
+    return t
+
+
+def init_flax_style(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialise convolutions as flax does by default: lecun-normal
+    kernels with fan_in = in_channels * kernel area, zero biases. (Norms
+    already start at weight 1, bias 0, mean 0, var 1.)"""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and type(m).__module__ == __name__:
+            w = m.weight
+            area = w.shape[2] * w.shape[3]
+            fan_in = area * (w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1])
+            lecun_normal_(w, fan_in, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

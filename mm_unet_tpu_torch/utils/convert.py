@@ -1,0 +1,96 @@
+"""JAX variables -> torch state_dict, by the reference's pair tables.
+
+The tables in `mm_unet_tpu/utils/torch_convert.py` (`mm_net_pairs`,
+`mmconv_pairs`, `mamba_pairs`, `bn_pairs`, `conv_pairs`, ...) map each flax
+variable path to the torch reference's key and a layout kind, in the
+direction torch -> flax. `jax_to_torch_state_dict` inverts each kind, so the
+same tables load JAX weights into this package's modules, which carry the
+torch reference's names. The caller passes the pair list; this module
+imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+
+_DT_PROJ = re.compile(r"(^|\.)dt_proj(_b|_s)?\.weight$")
+
+
+def _conv(k):  # flax (kH, kW, I, O) -> torch (O, I, kH, kW)
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+def _conv_t(k):  # undo the transpose and spatial flip of the "convT" kind
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+
+
+_INVERSE = {
+    "conv": _conv,
+    "convT": _conv_t,
+    "dense": lambda k: np.transpose(k, (1, 0)),  # (I, O) -> (O, I)
+    "raw": lambda k: k,
+    "conv1d_dw": lambda k: k[:, None, :],  # (D, W) -> (D, 1, W)
+}
+
+
+def _invert(kind, tkey: str, val: np.ndarray) -> np.ndarray:
+    if isinstance(kind, str):
+        return _INVERSE[kind](val)
+    # the tables' only function kind: dt_proj weights stored shifted by
+    # +dt_rank**-0.5 in flax (mm_unet_tpu/models/mamba.py:119-120)
+    if not _DT_PROJ.search(tkey):
+        raise ValueError(f"no inverse for the function kind of {tkey}")
+    return val - val.shape[1] ** -0.5
+
+
+def _leaves(tree: Mapping, prefix=()) -> dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
+                            like: Optional[Mapping[str, torch.Tensor]] = None
+                            ) -> dict[str, torch.Tensor]:
+    """variables_np: {"params": ..., "batch_stats": ...} nested dicts of
+    numpy arrays. pairs: (flax_path, torch_key, kind) as the tables give
+    them; leaves named mean/var are read from batch_stats and become
+    running_mean/running_var. Strict: every pair's leaf must exist, every
+    leaf must be used, and, when `like` (a torch state_dict) is given, the
+    keys and shapes must be exactly its own (BatchNorm's
+    num_batches_tracked aside)."""
+    leaves = {}
+    for coll in ("params", "batch_stats"):
+        leaves.update({(coll,) + p: v for p, v in _leaves(variables_np.get(coll, {})).items()})
+    sd, used, missing = {}, set(), []
+    for fpath, tkey, kind in pairs:
+        coll = "batch_stats" if fpath[-1] in ("mean", "var") else "params"
+        path = (coll,) + tuple(fpath)
+        if path not in leaves:
+            missing.append(path)
+            continue
+        if tkey in sd:
+            raise ValueError(f"torch key {tkey} mapped twice")
+        used.add(path)
+        # a writable C-ordered copy (np.ascontiguousarray would make 0-d 1-d)
+        sd[tkey] = torch.from_numpy(np.array(_invert(kind, tkey, leaves[path]), order="C"))
+    unused = sorted(set(leaves) - used)
+    if missing or unused:
+        raise ValueError(f"pair table mismatch: {len(missing)} missing flax leaves "
+                         f"{missing[:5]}, {len(unused)} unused leaves {unused[:5]}")
+    if like is not None:
+        want = {k: tuple(v.shape) for k, v in like.items()
+                if not k.endswith("num_batches_tracked")}
+        got = {k: tuple(v.shape) for k, v in sd.items()}
+        if want != got:
+            diff = sorted(set(want.items()) ^ set(got.items()))
+            raise ValueError(f"state_dict mismatch (key, shape) first of {len(diff)}: {diff[:5]}")
+    return sd
