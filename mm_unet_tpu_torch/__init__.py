@@ -3,15 +3,17 @@
 A port of `mm_unet_tpu` (JAX/Flax/Pallas), which stays beside it as the
 reference. The package mirrors the reference's module paths:
 
-- ``mm_unet_tpu_torch.ops``    — plain PyTorch ops and the two hand-written
-  CUDA kernels of the serving path (`mamba_fused`, `tap_conv`), whose
-  sources live in ``csrc/`` and are built by ``_build`` at first use.
-- ``mm_unet_tpu_torch.models`` — `MM_Net` (eval mode) and its blocks, with
-  the reference's torch module and parameter names.
-- ``mm_unet_tpu_torch.train``  — DiceFocal loss, sliding-window inference
-  and the predictor.
+- ``mm_unet_tpu_torch.ops``    — plain PyTorch ops and the hand-written
+  CUDA kernels, forward and backward, of the fused Mamba scan
+  (`mamba_fused`) and the morph-0 tap-conv (`tap_conv`), whose sources live
+  in ``csrc/`` and are built by ``_build`` at first use.
+- ``mm_unet_tpu_torch.models`` — `MM_Net` (eval and train mode) and its
+  blocks, with the reference's torch module and parameter names.
+- ``mm_unet_tpu_torch.train``  — DiceFocal loss, AdamW and its schedule,
+  the train step and epoch, sliding-window inference and the predictor.
 - ``mm_unet_tpu_torch.evaluate`` — the validation loop.
-- ``mm_unet_tpu_torch.utils.convert`` — JAX variables -> torch state_dict.
+- ``mm_unet_tpu_torch.utils.convert`` — JAX variables (and gradients) ->
+  torch names and layouts.
 
 Importing the package imports nothing but the standard library; the
 submodules import torch and never jax.

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``. The library's file name carries a hash of the sources and the
-flags, so an edited source builds a new library. The build happens at the
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``),
+all in parallel, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library's file name carries
+a hash of the sources and the flags, so an edited source builds a new
+library. The build happens at the
 first call of `library()` (never at import) into ``build/kernels/`` at the
 root of the checkout, which ``.gitignore`` lists.
 
@@ -26,19 +27,25 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _LIB = None
 VP, I32 = ctypes.c_void_p, ctypes.c_int
 
-# C signatures of the entry points (all return cudaError_t as int)
+# C signatures of the entry points (all return int: a cudaError_t)
 _SIGNATURES = {
     # xz, out, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
     # B, G, D, L, N, R, W, T, reverse, is_bf16, stream
     "mamba_fused_fwd": [VP] * 11 + [I32] * 10 + [VP],
+    # xz, dout, dxz, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
+    # gcarry, dpre, p_dxp, p_ddtw, p_ddtb, p_dA, p_dD, p_dconv,
+    # B, G, D, L, N, R, W, T, conv_tile, reverse, is_bf16, stream
+    "mamba_fused_bwd": [VP] * 20 + [I32] * 11 + [VP],
     # feat, y, kernel, bias, shifts, out, B, H, W, C, F, K, is_bf16, stream
     "tap_conv_fwd": [VP] * 6 + [I32] * 7 + [VP],
+    # feat, y, kernel, shifts, dout, dfeat, dy, p_dk, B, H, W, C, F, K, ms, is_bf16, stream
+    "tap_conv_bwd": [VP] * 8 + [I32] * 8 + [VP],
 }
 
 
@@ -65,24 +72,39 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the sources unless the library for their hash exists.
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link.
     `verbose` adds ``-Xptxas -v`` and prints the compiler's report
     (registers, shared memory and spills of every kernel)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a torn file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp, src.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                   "-o", str(obj), str(src)]
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(err, flush=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = Path(tmp, out.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent process never loads a torn file
     return out
 
 

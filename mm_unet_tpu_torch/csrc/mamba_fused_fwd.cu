@@ -28,6 +28,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mamba_chunk.cuh"
 
 namespace {
 
@@ -42,6 +43,7 @@ struct MambaArgs {
   const float* A;       // (G, D, N), negative
   const float* Dskip;   // (G, D)
   float* state;         // (B, G, nC, D, N): chunk end states, then entry states
+                        // (kept for the backward kernel)
   float* dtsum;         // (B, G, nC, D)
   int B, G, D, L, N, R, W, T, nC;
   bool reverse;
@@ -71,46 +73,10 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
   const float* Ad = a.A + (size_t)g * D * N;
   const float* Dv = a.Dskip + (size_t)g * D;
 
-  // 1. depthwise conv (taps read straight from xz: the halo across the
-  //    chunk edge is just a neighbour's tokens) + SiLU; zero past L
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T, gt = t0 + t;
-    float v = 0.f;
-    if (gt < L) {
-      float acc = cb[d];
-      for (int k = 0; k < W; ++k) {
-        const int s = W - 1 - k;
-        const int src = a.reverse ? gt + s : gt - s;
-        if (src >= 0 && src < L) acc += cw[d * W + k] * mmu::to_f32(x[(size_t)d * L + src]);
-      }
-      v = mmu::round_to<TI>(mmu::silu(acc));
-    }
-    u_s[i] = v;
-  }
-  __syncthreads();
-
-  // 2. x_dbl = x_proj @ u; the dt rows round to the stream dtype
-  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
-    const int e = i / T, t = i - e * T;
-    const float* row = xp + (size_t)e * D;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += row[d] * u_s[d * T + t];
-    xd_s[i] = e < R ? mmu::round_to<TI>(acc) : acc;
-  }
-  __syncthreads();
-
-  // 3. dt = softplus(dt_proj @ x_dbl[:R] + dt_b); 0 past L (identity step)
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T;
-    float v = 0.f;
-    if (t0 + t < L) {
-      float acc = dtb[d];
-      for (int r = 0; r < R; ++r) acc += dtw[d * R + r] * xd_s[r * T + t];
-      v = mmu::softplus(acc);
-    }
-    dt_s[i] = v;
-  }
-  __syncthreads();
+  // 1.-3. conv + SiLU, x_dbl = x_proj @ u (dt rows rounded to the stream
+  //        dtype), dt = softplus(dt_proj @ x_dbl[:R] + dt_b); 0 past L
+  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, W, a.reverse, cw, cb, xp, dtw, dtb, u_s, dt_s,
+                           xd_s);
 
   // 4. the scan: one thread per (d, n); N-lane groups share a channel
   const float* Bs = xd_s + R * T;
@@ -125,6 +91,9 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
     const float a_dn = Ad[d * N + n];
     float h = 0.f, sum_dt = 0.f;
     if (FINAL && a.nC > 1) h = a.state[sbase * D * N + p];
+    // one chunk: no pass 1 and no combine; its entry state, which the
+    // backward reads, is zero
+    if (FINAL && a.nC == 1) a.state[sbase * D * N + p] = 0.f;
     for (int s = 0; s < T; ++s) {
       const int t = a.reverse ? T - 1 - s : s;
       const float dtv = dt_s[d * T + t];

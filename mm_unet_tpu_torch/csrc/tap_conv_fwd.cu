@@ -26,10 +26,11 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tap_geometry.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 9;
+using mmu::kMaxTaps;
 constexpr int BK = 16;
 
 struct TapArgs {
@@ -63,14 +64,10 @@ tap_conv_kernel(TapArgs a) {
     int lo_o = -1, hi_o = -1;
     float fr = 0.f;
     if (m < M) {
-      const int w = m % W, bh = m / W, b = bh / H;
-      const float yc = fminf(fmaxf(a.y[(size_t)m * K + j], 0.f), (float)(H - 1));
-      const float lo = fminf(fmaxf(floorf(yc), 0.f), (float)max(H - 2, 0));
-      fr = yc - lo;
-      const int lo_i = (int)lo, hi_i = min(lo_i + 1, H - 1);
-      const int wc = min(max(w + a.shifts[j], 0), W - 1);
-      lo_o = ((b * H + lo_i) * W + wc) * C;
-      hi_o = ((b * H + hi_i) * W + wc) * C;
+      const mmu::TapSource src = mmu::tap_source(a.y, m, j, K, H, W, C, a.shifts[j]);
+      lo_o = src.lo;
+      hi_o = src.hi;
+      fr = src.frac;
     }
     lo_off[i] = lo_o;
     hi_off[i] = hi_o;

@@ -1,0 +1,31 @@
+// Morph-0 tap geometry shared by the tap-conv forward and backward kernels:
+// where tap j of output pixel m samples (mm_unet_tpu/ops/tap_conv.py,
+// `_TapConv`'s clamped column shifts and clipped 2-hot row interpolation).
+#pragma once
+
+#include "common.cuh"
+
+namespace mmu {
+
+constexpr int kMaxTaps = 9;
+
+struct TapSource {
+  int lo, hi;   // element offsets of rows lo and lo + 1 at column clamp(w + shift)
+  float frac;   // lerp weight of row lo + 1
+  bool inside;  // y within [0, H-1]: the clip passes its gradient only there
+};
+
+// pixel m = (b * H + h) * W + w of an NHWC map with C channels; y (M, K) f32
+__device__ __forceinline__ TapSource tap_source(const float* y, int m, int j, int K, int H,
+                                                int W, int C, int shift) {
+  const int w = m % W, b = m / W / H;
+  const float yv = y[(size_t)m * K + j];
+  const float yc = fminf(fmaxf(yv, 0.f), (float)(H - 1));
+  const float lo = fminf(fmaxf(floorf(yc), 0.f), (float)max(H - 2, 0));
+  const int lo_i = (int)lo, hi_i = min(lo_i + 1, H - 1);
+  const int wc = min(max(w + shift, 0), W - 1);
+  return {((b * H + lo_i) * W + wc) * C, ((b * H + hi_i) * W + wc) * C, yc - lo,
+          yv >= 0.f && yv <= (float)(H - 1)};
+}
+
+}  // namespace mmu

@@ -1,7 +1,7 @@
 """Validation loop (counterpart of `train.py:87-116::val_one_epoch`):
 sliding-window logits through the predictor, the loss on the logits, and
-the numpy metrics (`mm_unet_tpu.train.metrics`, shared with the JAX package)
-on the prediction thresholded at sigmoid > 0.5."""
+the numpy metrics (`train/metrics.py`) on the prediction thresholded at
+sigmoid > 0.5."""
 
 from __future__ import annotations
 

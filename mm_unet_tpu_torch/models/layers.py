@@ -64,7 +64,15 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm (running statistics), reduced in f32."""
+    """BatchNorm reduced in f32, as flax's `BatchNorm(momentum=0.9)`.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch mean and the biased batch variance E[x^2] - E[x]^2
+    (clipped at 0, flax's fast variance) and updates the running statistics
+    in place as flax does, running = 0.9 * running + 0.1 * batch, with the
+    biased variance (`F.batch_norm` would store the unbiased one)."""
+
+    MOMENTUM = 0.9  # flax's convention: the weight of the old running value
 
     def __init__(self, num_features: int, compute_dtype: Optional[torch.dtype] = None):
         super().__init__(num_features, eps=1e-5)
@@ -72,9 +80,41 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         cd = _cdtype(self.compute_dtype, x, self.weight)
-        y = F.batch_norm(x.float(), self.running_mean.float(), self.running_var.float(),
-                         self.weight.float(), self.bias.float(), False, 0.0, self.eps)
+        xf = x.float()
+        if not self.training:
+            y = F.batch_norm(xf, self.running_mean.float(), self.running_var.float(),
+                             self.weight.float(), self.bias.float(), False, 0.0, self.eps)
+            return y.to(cd)
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean.detach().to(self.running_mean.dtype), alpha=1 - m)
+            self.running_var.mul_(m).add_(var.detach().to(self.running_var.dtype), alpha=1 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(cd)
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout in train mode: each (sample, channel) plane is kept
+    with probability 1 - p and scaled by 1 / (1 - p), or zeroed (flax's
+    `Dropout(p, broadcast_dims=(1, 2))` on NHWC). The keep mask is drawn
+    from `generator` (a `torch.Generator` on the input's device) when one is
+    set, else from PyTorch's default generator. Identity in eval mode or at
+    p = 0."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape[0], x.shape[1], 1, 1, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class GroupNorm(nn.GroupNorm):

@@ -1,6 +1,10 @@
-"""MM_Net, the Morph-Mamba U-Net, in PyTorch for serving (counterpart of
-`mm_unet_tpu/models/mm_unet.py`; eval mode only: BatchNorm uses its running
-statistics and the side outputs' Dropout2d is left out).
+"""MM_Net, the Morph-Mamba U-Net, in PyTorch (counterpart of
+`mm_unet_tpu/models/mm_unet.py`). `.eval()` is the JAX model's
+`train=False`: BatchNorm uses its running statistics and the side outputs'
+Dropout2d is off. `.train()` is `train=True`: BatchNorm normalises with the
+batch statistics and updates the running ones, Dropout2d draws its masks,
+and with `remat=True` each MMConv recomputes its sample-and-conv part in
+the backward pass.
 
 Module and parameter names are the torch reference's, as tabulated by
 `mm_unet_tpu.utils.torch_convert.mm_net_pairs`, so `utils.convert` maps JAX
@@ -21,11 +25,13 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mm_unet_tpu_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
+    Dropout2d,
     GroupNorm,
     init_flax_style,
     nchw_to_nhwc,
@@ -45,7 +51,14 @@ class MMConv(nn.Module):
     """Morph-0 Morph-Mamba deformable conv: offset conv 3x3 -> GroupNorm(k)
     -> tanh -> row coordinates (cumulative offsets from the kernel centre,
     refined by a TFM Mamba over the serpentine-flattened offset field) ->
-    fused row sample + (k,1) stride-k conv (`tap_conv`) -> GroupNorm(out/4)."""
+    fused row sample + (k,1) stride-k conv (`tap_conv`) -> GroupNorm(out/4).
+
+    `remat` (set through MM_Net.remat) wraps the sample-and-conv part, tap-conv plus
+    GroupNorm, in `torch.utils.checkpoint` while training with grad enabled:
+    its activations are recomputed in the backward pass instead of kept (the
+    JAX model's `nn.remat` boundary, `mm_unet.py:123-149`)."""
+
+    remat = False
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
                  extend_scope: float = 1.0, num_slices: int = 4,
@@ -76,9 +89,14 @@ class MMConv(nn.Module):
         y_keep = inverse_two_row_flatten_tokens(m_out, h, w)
         weight = torch.clamp(F.softplus(self.altho.float()), min=0.01)
         y = weight * y_keep + y_new
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._sample_conv, nchw_to_nhwc(x), y, use_reentrant=False)
+        return self._sample_conv(nchw_to_nhwc(x), y)
+
+    def _sample_conv(self, feat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size
         kernel = self.dsc_conv_x.weight.permute(2, 3, 1, 0)  # (F,C,K,1) -> (K,1,C,F)
-        out = tap_conv(nchw_to_nhwc(x), y, kernel, self.dsc_conv_x.bias,
-                       [j - k // 2 for j in range(k)])
+        out = tap_conv(feat, y, kernel, self.dsc_conv_x.bias, [j - k // 2 for j in range(k)])
         return self.gn(nhwc_to_nchw(out))
 
 
@@ -112,16 +130,18 @@ def _mmconv_bn_relu(cin, cout, k, ns, dtype, g):
 
 
 class SideoutBlock(nn.Module):
-    """MMConv -> BN -> ReLU -> 1x1 conv."""
+    """MMConv -> BN -> ReLU -> Dropout2d(drop) -> 1x1 conv."""
 
-    def __init__(self, in_channels, out_channels, num_slices=4, dtype=None, generator=None):
+    def __init__(self, in_channels, out_channels, num_slices=4, dtype=None, generator=None,
+                 drop: float = 0.1):
         super().__init__()
         mid = in_channels // 4
         self.conv1 = _mmconv_bn_relu(in_channels, mid, 3, num_slices, dtype, generator)
+        self.drop = Dropout2d(drop)
         self.conv2 = Conv2d(mid, out_channels, 1, compute_dtype=dtype)
 
     def forward(self, x):
-        return self.conv2(self.conv1(x))
+        return self.conv2(self.drop(self.conv1(x)))
 
 
 class RCG(nn.Module):
@@ -224,13 +244,19 @@ def validate_input_size(h: int, w: int, num_slices_list=(64, 32, 16, 8)):
 class MM_Net(nn.Module):
     """(B, 3, H, W) -> (B, num_classes, H, W) f32 logits: the sum of four
     side outputs and the contour logits, each bilinearly upsampled
-    (align_corners=True) to the input size."""
+    (align_corners=True) to the input size.
+
+    `remat` and `sideout_drop` take the JAX model's defaults
+    (`mm_unet.py:488,495`): MMConv recompute in the backward pass, and the
+    side outputs' Dropout2d rate."""
 
     def __init__(self, num_classes: int = 1,
                  num_slices_list: Sequence[int] = (64, 32, 16, 8),
                  depths: Sequence[int] = (3, 4, 6, 3),
                  mamba_dtype: Optional[str] = "bfloat16",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = True,
+                 sideout_drop: float = 0.1):
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         dt = getattr(torch, mamba_dtype) if mamba_dtype else None
@@ -256,7 +282,7 @@ class MM_Net(nn.Module):
         self.down4 = _mmconv_bn_relu(256, 64, 1, ns[-1], dt, g)
         self.down5 = _mmconv_bn_relu(512, 64, 1, ns[-1], dt, g)
         self.decoder5 = DecoderBlock(64, 64, ns[3], dt, g)
-        self.side5 = SideoutBlock(64, num_classes, ns[3], dt, g)
+        self.side5 = SideoutBlock(64, num_classes, ns[3], dt, g, sideout_drop)
         # contour branch
         self.cbam = nn.Sequential(
             Conv2d(64, 64, 3, padding=1, compute_dtype=dt), BatchNorm2d(64, dt), nn.ReLU(),
@@ -267,8 +293,27 @@ class MM_Net(nn.Module):
         for n, s in ((4, ns[2]), (3, ns[1]), (2, ns[0])):
             self.add_module(f"rcg{n}", RCG(num_slices=s, dtype=dt, generator=g))
             self.add_module(f"decoder{n}", DecoderBlock(128, 64, s, dt, g))
-            self.add_module(f"side{n}", SideoutBlock(64, num_classes, s, dt, g))
+            self.add_module(f"side{n}", SideoutBlock(64, num_classes, s, dt, g, sideout_drop))
         init_flax_style(self, g)
+        self.remat = remat
+
+    @property
+    def remat(self) -> bool:
+        """Whether the MMConvs recompute their sample-and-conv part in the
+        backward pass; setting it sets every MMConv's flag."""
+        return any(m.remat for m in self.modules() if isinstance(m, MMConv))
+
+    @remat.setter
+    def remat(self, on: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, MMConv):
+                m.remat = bool(on)
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Draw every Dropout2d mask from `generator` (on the model's device)."""
+        for m in self.modules():
+            if isinstance(m, Dropout2d):
+                m.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_hw = x.shape[2:]
@@ -303,3 +348,16 @@ class MM_Net(nn.Module):
         mambas = sum(isinstance(m, Mamba) for m in self.modules())
         mmconvs = sum(isinstance(m, MMConv) for m in self.modules())
         return {"mamba_fused_scan": 3 * mambas, "tap_conv": mmconvs}
+
+    def kernel_launches_per_train_step(self) -> dict:
+        """Forward and backward launches of each kernel in one train step
+        (forward in train mode, then backward), counted from the modules:
+        every scan and tap-conv of the forward has a backward; with `remat`
+        the tap-conv forward runs a second time per MMConv, in the backward
+        pass."""
+        per = self.kernel_launches_per_forward()
+        rm = self.remat
+        return {"mamba_fused_scan": {"fwd": per["mamba_fused_scan"],
+                                     "bwd": per["mamba_fused_scan"]},
+                "tap_conv": {"fwd": per["tap_conv"] * (2 if rm else 1),
+                             "bwd": per["tap_conv"]}}

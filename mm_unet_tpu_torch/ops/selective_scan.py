@@ -7,7 +7,8 @@
 
 The state and every reduction are f32; the result has u's dtype. The
 recurrence walks the tokens one at a time (one fused multiply-add launch per
-token), so this is the oracle for the kernels, not a fast path.
+token), so this is the oracle for the kernels, forward and (through autograd)
+backward, not a fast path.
 """
 
 from __future__ import annotations
@@ -63,10 +64,14 @@ def selective_scan_ref(
     decay = torch.exp(dlt.permute(2, 0, 1)[..., None] * Af).contiguous()
     b_t = bm.permute(3, 0, 1, 2) if var_b else bm[None, None]
     drive = ((dlt * uf).permute(2, 0, 1)[..., None] * b_t).contiguous()
-    hs = torch.empty(decay.shape, dtype=decay.dtype, device=decay.device)
+    # states collected in a list and stacked (no out=): autograd differentiates
+    # through the loop, so this version is also the gradient oracle
     h = torch.zeros_like(decay[0])
+    states = []
     for t in range(length):
-        h = torch.addcmul(drive[t], decay[t], h, out=hs[t])
+        h = torch.addcmul(drive[t], decay[t], h)
+        states.append(h)
+    hs = torch.stack(states) if length else decay
     c_t = cm.permute(3, 0, 1, 2) if var_c else cm[None, None]
     y = (hs * c_t).sum(-1).permute(1, 2, 0)  # (B, D, L)
     if D is not None:
@@ -75,5 +80,5 @@ def selective_scan_ref(
         y = y * F.silu(z.float())
     out = y.to(u.dtype)
     if return_last_state:
-        return out, hs[-1].clone() if length else h
+        return out, h
     return out

@@ -57,6 +57,38 @@ def _leaves(tree: Mapping, prefix=()) -> dict[tuple, np.ndarray]:
     return out
 
 
+def jax_grads_to_torch(grads_np: Mapping, pairs: Iterable) -> dict[str, torch.Tensor]:
+    """Gradients of the flax params (nested dicts of numpy arrays, the
+    `params` tree's structure) -> {torch parameter name: gradient}, by the
+    same pair tables. Only each kind's layout is inverted: the dt_proj
+    function kind stores the weight shifted by a constant, whose derivative
+    is the identity, so its gradient passes unchanged. BatchNorm statistics
+    (mean/var) have no gradients and are skipped. Strict like
+    `jax_to_torch_state_dict`: every param pair must find its gradient."""
+    leaves = _leaves(grads_np)
+    out, used, missing = {}, set(), []
+    for fpath, tkey, kind in pairs:
+        if fpath[-1] in ("mean", "var"):
+            continue
+        path = tuple(fpath)
+        if path not in leaves:
+            missing.append(path)
+            continue
+        used.add(path)
+        if isinstance(kind, str):
+            val = _INVERSE[kind](leaves[path])
+        elif _DT_PROJ.search(tkey):
+            val = leaves[path]  # d(w - c)/dw = 1
+        else:
+            raise ValueError(f"no gradient inverse for the function kind of {tkey}")
+        out[tkey] = torch.from_numpy(np.array(val, order="C"))
+    unused = sorted(set(leaves) - used)
+    if missing or unused:
+        raise ValueError(f"pair table mismatch: {len(missing)} missing gradients "
+                         f"{missing[:5]}, {len(unused)} unused gradients {unused[:5]}")
+    return out
+
+
 def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
                             like: Optional[Mapping[str, torch.Tensor]] = None
                             ) -> dict[str, torch.Tensor]:

@@ -71,3 +71,91 @@ def test_tap_conv_kernel_matches_plain(hw, C, F, K, dtype):
     assert tap_conv.launches == before + 1
     assert got.shape == (2, hw, hw, F) and got.dtype == dtype and got.is_cuda
     _close(got, tap_conv_ref(feat, y, kernel, bias, shifts), dtype)
+
+
+# Backward kernels against autograd of the plain versions on the card. The
+# gradients of each input, as max |kernel - plain| <= tol * (1 + max |plain|):
+# f32 5e-4 (sums over chunks, blocks and atomics in other orders), bf16 3e-2
+# (the plain version rounds some gradients at its casts, the kernel where the
+# TPU kernel does, and errors of a few bf16 ulps add up over the sums).
+BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+
+
+def _grads(fn, inputs, dout):
+    ins = [t.detach().clone().requires_grad_(True) if t is not None else None for t in inputs]
+    out = fn(*ins)
+    out.backward(dout)
+    return [None if t is None else t.grad for t in ins]
+
+
+def _close_grads(got, want, dtype, names):
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * (1.0 + w.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("D,R,L", [(6, 1, 1000), (128, 4, 700), (6, 1, 100), (128, 4, 50)])
+def test_mamba_fused_backward_matches_plain(D, R, L, reverse, dtype):
+    """Several chunks and, at L=100 / 50, a single chunk (no combine pass:
+    the forward must leave a zero entry state for the backward to read)."""
+    dev = _device()
+    rng = np.random.default_rng(D * L + reverse)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    N, W, B = 16, 4, 2
+    xz = torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype)
+    args = [xz, f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
+            f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5),
+            f(1, D)]
+    dout = f(B, 1, D, L).to(dtype)
+    before = mamba_fused_scan.bwd_launches
+    got = _grads(lambda *a: mamba_fused_scan(*a, reverse=reverse), args, dout)
+    assert mamba_fused_scan.bwd_launches == before + 1
+    want = _grads(lambda *a: mamba_fused_scan_ref(*a, reverse=reverse), args, dout)
+    assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
+    _close_grads(got, want, dtype, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"])
+
+
+@pytest.mark.cuda
+def test_mamba_fused_backward_without_conv_bias():
+    dev = _device()
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    D, R, L, N = 8, 1, 300, 16
+    args = [torch.cat([f(1, 1, D, L) * 0.5, f(1, 1, D, L)], dim=2), f(1, D, 4) * 0.4, None,
+            f(1, R + 2 * N, D) * D ** -0.5, f(1, D, R), f(1, D) * 0.1 - 4.0,
+            -torch.exp(f(1, D, N) * 0.5), f(1, D)]
+    dout = f(1, 1, D, L)
+    got = _grads(mamba_fused_scan, args, dout)
+    want = _grads(mamba_fused_scan_ref, args, dout)
+    assert got[2] is None
+    _close_grads(got, want, torch.float32, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b",
+                                            "A", "D"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,C,F,K", [(24, 64, 64, 3), (16, 32, 16, 3), (16, 128, 64, 1),
+                                      (1, 8, 24, 3)])
+def test_tap_conv_backward_matches_plain(hw, C, F, K, dtype):
+    """Both dkernel tile shapes (F <= 16 and wider), K = 1 and 3, coordinates
+    past both edges, and a single-row map (no row to interpolate towards)."""
+    dev = _device()
+    rng = np.random.default_rng(hw * C + K + 1)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    feat = f(2, hw, hw + 7, C).to(dtype)
+    rows = torch.arange(hw, dtype=torch.float32, device=dev)[None, :, None, None]
+    y = rows + 2.0 * f(2, hw, hw + 7, K)
+    args = [feat, y, f(K, 1, C, F) * (K * C) ** -0.5, f(F) * 0.1]
+    dout = f(2, hw, hw + 7, F).to(dtype)
+    shifts = [j - K // 2 for j in range(K)]
+    before = tap_conv.bwd_launches
+    got = _grads(lambda *a: tap_conv(*a, shifts), args, dout)
+    assert tap_conv.bwd_launches == before + 1
+    want = _grads(lambda *a: tap_conv_ref(*a, shifts), args, dout)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    _close_grads(got, want, dtype, ["feat", "y", "kernel", "bias"])

@@ -147,8 +147,10 @@ def test_validate_input_size_matches_jax(hw, ns):
 def test_val_one_epoch_matches_its_parts():
     """The validation loop over two batches: its losses are DiceFocal of the
     sliding-window logits, and its metrics are the shared numpy metrics of
-    the thresholded prediction."""
+    the thresholded prediction (the port's metrics, checked against the
+    JAX package's)."""
     from mm_unet_tpu.train.metrics import build_metrics
+    from mm_unet_tpu_torch.train.metrics import build_metrics as port_build_metrics
 
     model = give_model("MM_Net", generator=torch.Generator().manual_seed(5),
                        mamba_dtype=None, **TINY)
@@ -157,7 +159,7 @@ def test_val_one_epoch_matches_its_parts():
                 "label": (rng.random((n, 1, 64, 64)) < 0.3).astype(np.float32)} for n in (2, 1)]
     inferer = SlidingWindowInferer((64, 64), overlap=0.5)
     f1, metric, losses = val_one_epoch(model, dice_focal_loss, inferer, batches,
-                                       build_metrics())
+                                       port_build_metrics())
     predictor = make_predictor(model)
     want_metrics = build_metrics()
     for i, b in enumerate(batches):

@@ -1,0 +1,479 @@
+"""The port's training slice against the JAX package, on the CPU.
+
+Gradients of the two kernel modules' plain versions (which the CUDA
+backward kernels are held to on the card) against `jax.grad` of the JAX
+kernels in Pallas interpret mode / the JAX model's XLA tap-conv; the
+weighted DiceFocal loss; BatchNorm in train mode against flax; Dropout2d;
+AdamW and its schedule against optax; and one whole train step of a small
+MM_Net (depths=(1,1,1,1), num_slices_list=(4,4,4,4), f32, 2x3x64x64,
+sideout_drop=0, remat off and on) against the JAX `train_step` with the
+same weights: the loss, every parameter gradient, the updated BatchNorm
+statistics and the parameters after one AdamW step. One JAX init and one
+compiled JAX step serve the file (module-scoped fixture).
+
+Tolerances, as max |port - jax| <= tol * (1 + max |jax|):
+- kernel-module gradients, f32: 1e-4 (the chunked TPU scan and the
+  token-by-token plain scan sum in different orders);
+- loss, BatchNorm, optimizer: 1e-5 to 1e-6 (the same arithmetic);
+- the whole step, f32: loss 1e-5; gradients 2e-4 (summation orders
+  through ~40 layers forward and back); BatchNorm statistics 1e-4;
+  parameters after the step 1e-5, at every element whose gradient is clear
+  of 0 by more than the gradient tolerance (AdamW's first update is about
+  lr * sign(g), so a gradient within its tolerance of 0 may move the two
+  packages' weights up to 2 lr apart; those elements are held through
+  their gradients). The dt_proj weights differ by a stated term: the JAX
+  package decays their shifted storage, the port the torch weight.
+"""
+
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from mm_unet_tpu.models.mm_unet import MM_Net as JMM_Net
+from mm_unet_tpu.ops.mamba_fused import mamba_fused_scan as jax_mamba_fused_scan
+from mm_unet_tpu.ops.selective_scan import selective_scan_ref as jax_selective_scan_ref
+from mm_unet_tpu.train.losses import dice_focal_loss as jax_dice_focal_loss
+from mm_unet_tpu.train.optim import build_optimizer as jax_build_optimizer
+from mm_unet_tpu.train.optim import warmup_cosine_epoch_schedule as jax_schedule
+from mm_unet_tpu.train.optim import wd_mask as jax_wd_mask
+from mm_unet_tpu.train.trainer import TrainState as JTrainState
+from mm_unet_tpu.train.trainer import make_loss_fn as jax_make_loss_fn
+from mm_unet_tpu.train.trainer import train_step as jax_train_step
+from mm_unet_tpu.utils.torch_convert import mm_net_pairs
+from mm_unet_tpu_torch.models import give_model
+from mm_unet_tpu_torch.models.layers import BatchNorm2d, Dropout2d
+from mm_unet_tpu_torch.models.mm_unet import MM_Net, MMConv
+from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+from mm_unet_tpu_torch.ops.selective_scan import selective_scan_ref
+from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+from mm_unet_tpu_torch.train.loop import train_one_epoch
+from mm_unet_tpu_torch.train.losses import dice_focal_loss
+from mm_unet_tpu_torch.train.optim import (
+    build_optimizer,
+    set_lr,
+    warmup_cosine_epoch_schedule,
+    wd_mask,
+)
+from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
+from mm_unet_tpu_torch.utils.convert import jax_grads_to_torch, jax_to_torch_state_dict
+from test_tap_conv import _ref as jax_tap_conv_xla
+from torch_port_harness import assert_close, load_torch, randomize_batch_stats, to_numpy
+
+TINY = dict(depths=(1, 1, 1, 1), num_slices_list=(4, 4, 4, 4))
+PAIRS = mm_net_pairs(depths=TINY["depths"])
+CONFIG = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=10, weight_decay=0.05,
+                          steps_per_epoch=1, optimizer="adamw")}
+MAMBA_ARGS = ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"]
+GRAD_TOL = 2e-4  # whole-step gradients, f32
+_DT_PROJ = re.compile(r"(^|\.)dt_proj(_b|_s)?\.weight$")
+
+
+def _t(a, grad=True):
+    return torch.from_numpy(np.array(a, np.float32)).requires_grad_(grad)
+
+
+# --- kernel modules: gradients of the plain versions ------------------------
+
+def test_selective_scan_ref_grads_match_jax():
+    """The plain scan is differentiable (its states are stacked, not written
+    with out=) and its gradients are JAX's."""
+    rng = np.random.default_rng(0)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    u, dt, A, Bv, Cv, D, z, db = (f(2, 4, 9), f(2, 4, 9) * 0.5, -np.exp(f(4, 3)), f(2, 3, 9),
+                                  f(2, 3, 9), f(4), f(2, 4, 9), f(4) * 0.1)
+    w = f(2, 4, 9)
+    args = (u, dt, A, Bv, Cv, D, z, db)
+
+    def jloss(*a):
+        y = jax_selective_scan_ref(*a[:5], D=a[5], z=a[6], delta_bias=a[7], delta_softplus=True)
+        return jnp.sum(y * w)
+
+    want = jax.grad(jloss, argnums=tuple(range(8)))(*(jnp.asarray(a) for a in args))
+    th = [_t(a) for a in args]
+    y = selective_scan_ref(*th[:5], D=th[5], z=th[6], delta_bias=th[7], delta_softplus=True)
+    (y * torch.from_numpy(w)).sum().backward()
+    for i, (p, g) in enumerate(zip(th, want)):
+        assert_close(p.grad.numpy(), np.asarray(g), 1e-5, f"d arg {i}")
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_mamba_fused_scan_ref_grads_match_jax(reverse, bias):
+    """Gradients w.r.t. all eight inputs against jax.grad of the Pallas
+    kernel pair (interpret mode), the custom VJP whose backward CUDA port
+    is held to this plain version on the card."""
+    rng = np.random.default_rng(11 + reverse + 2 * bias)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    B, G, D, L, N, R, W = 2, 1, 8, 40, 16, 2, 4
+    args = [np.concatenate([f(B, G, D, L) * 0.5, f(B, G, D, L)], axis=2), f(G, D, W) * 0.4,
+            f(G, D) * 0.1 if bias else None, f(G, R + 2 * N, D) * D ** -0.5, f(G, D, R) * 0.3,
+            f(G, D) * 0.1, -np.exp(f(G, D, N) * 0.5), f(G, D)]
+    w = f(B, G, D, L)
+    idx = [i for i, a in enumerate(args) if a is not None]
+
+    def jloss(*live):
+        full = list(args)
+        for i, a in zip(idx, live):
+            full[i] = a
+        return jnp.sum(jax_mamba_fused_scan(*full, reverse=reverse) * w)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(idx))))(*(jnp.asarray(args[i]) for i in idx))
+    th = [None if a is None else _t(a) for a in args]
+    out = mamba_fused_scan(*th, reverse=reverse)
+    (out * torch.from_numpy(w)).sum().backward()
+    for i, g in zip(idx, want):
+        assert_close(th[i].grad.numpy(), np.asarray(g), 1e-4,
+                     f"d{MAMBA_ARGS[i]} reverse={reverse} bias={bias}")
+
+
+@pytest.mark.parametrize("H,K", [(12, 1), (12, 3), (1, 3)])
+def test_tap_conv_ref_grads_match_jax(H, K):
+    """Gradients w.r.t. feat, row coordinates (past both edges: clipped,
+    zero gradient there), kernel and bias against jax.grad of the XLA
+    formulation the JAX model runs off the TPU (2-hot row matrix)."""
+    rng = np.random.default_rng(H * 10 + K)
+    B, W, C, F = 2, 16, 8, 6
+    feat = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    y = rng.uniform(-3.0, H + 2.0, (B, H, W, K)).astype(np.float32)
+    kernel = (rng.standard_normal((K, 1, C, F)) * (K * C) ** -0.5).astype(np.float32)
+    bias = rng.standard_normal(F).astype(np.float32) * 0.1
+    w = rng.standard_normal((B, H, W, F)).astype(np.float32)
+    shifts = [j - K // 2 for j in range(K)]
+    want = jax.grad(lambda *a: jnp.sum(jax_tap_conv_xla(*a, shifts) * w), argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (feat, y, kernel, bias)))
+    th = [_t(a) for a in (feat, y, kernel, bias)]
+    (tap_conv(*th, shifts) * torch.from_numpy(w)).sum().backward()
+    for name, p, g in zip(("feat", "y", "kernel", "bias"), th, want):
+        assert_close(p.grad.numpy(), np.asarray(g), 1e-5, f"d{name} H={H} K={K}")
+
+
+# --- loss, layers, optimizer -----------------------------------------------
+
+@pytest.mark.parametrize("weight", [None, (1.0, 0.0, 2.5), (0.0, 0.0, 0.0)])
+def test_dice_focal_loss_weight_matches_jax(weight):
+    rng = np.random.default_rng(3)
+    logits = (rng.standard_normal((3, 1, 16, 12)) * 3).astype(np.float32)
+    labels = (rng.random((3, 1, 16, 12)) < 0.2).astype(np.float32)
+    wj = None if weight is None else jnp.asarray(weight, jnp.float32)
+    wt = None if weight is None else torch.tensor(weight)
+    want, want_g = jax.value_and_grad(
+        lambda lg: jax_dice_focal_loss(lg, jnp.asarray(labels), weight=wj))(jnp.asarray(logits))
+    lt = _t(logits)
+    got = dice_focal_loss(lt, torch.from_numpy(labels), weight=wt)
+    got.backward()
+    assert_close(got.item(), float(want), 1e-6, "loss")
+    assert_close(lt.grad.numpy(), np.asarray(want_g), 1e-6, "dloss/dlogits")
+
+
+def test_batchnorm_train_mode_matches_flax():
+    """Output, input gradient and the updated running statistics (flax
+    keeps the biased batch variance) against flax.linen.BatchNorm."""
+    import flax.linen as fnn
+
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 5, 6, 4)) * 2 + 1).astype(np.float32)  # NHWC
+    scale = rng.uniform(0.5, 1.5, 4).astype(np.float32)
+    bias = rng.normal(0, 0.3, 4).astype(np.float32)
+    mean, var = rng.normal(0, 0.3, 4).astype(np.float32), rng.uniform(0.5, 2, 4).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    v = {"params": {"scale": scale, "bias": bias}, "batch_stats": {"mean": mean, "var": var}}
+
+    def jloss(xj):
+        y, upd = bn.apply(v, xj, mutable=["batch_stats"])
+        return jnp.sum(y * w), (y, upd)
+
+    (_, (want, upd)), want_dx = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    m = BatchNorm2d(4).train()
+    m.load_state_dict({"weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias),
+                       "running_mean": torch.from_numpy(mean), "running_var": torch.from_numpy(var),
+                       "num_batches_tracked": torch.tensor(0)})
+    xt = _t(x.transpose(0, 3, 1, 2))
+    y = m(xt)
+    (y * torch.from_numpy(w.transpose(0, 3, 1, 2))).sum().backward()
+    assert_close(y.detach().numpy().transpose(0, 2, 3, 1), np.asarray(want), 1e-5, "y")
+    assert_close(xt.grad.numpy().transpose(0, 2, 3, 1), np.asarray(want_dx), 1e-5, "dx")
+    assert_close(m.running_mean.numpy(), np.asarray(upd["batch_stats"]["mean"]), 1e-6, "mean")
+    assert_close(m.running_var.numpy(), np.asarray(upd["batch_stats"]["var"]), 1e-6, "var")
+    m.eval()  # eval mode: running statistics, nothing updated
+    before = m.running_var.clone()
+    m(xt.detach())
+    assert torch.equal(m.running_var, before)
+
+
+def test_dropout2d_drops_whole_channels():
+    x = torch.from_numpy(np.random.default_rng(5).uniform(1, 2, (8, 16, 5, 7)).astype(np.float32))
+    d = Dropout2d(0.25, torch.Generator().manual_seed(0)).train()
+    y = d(x)
+    kept = (y != 0).all(dim=(2, 3))
+    dropped = (y == 0).all(dim=(2, 3))
+    assert bool((kept | dropped).all())  # every (sample, channel) plane whole
+    torch.testing.assert_close(y[kept], x[kept] / 0.75)
+    assert 0.55 < kept.float().mean().item() < 0.95  # keep rate 0.75 over 128 planes
+    d2 = Dropout2d(0.25, torch.Generator().manual_seed(0)).train()
+    assert torch.equal(d2(x), y)  # the generator decides the mask
+    assert torch.equal(d.eval()(x), x) and torch.equal(Dropout2d(0.0).train()(x), x)
+
+
+class _Tree(torch.nn.Module):
+    """A small module whose parameter names cover every wd_mask rule."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.conv = torch.nn.Module()
+        self.conv.weight = torch.nn.Parameter(torch.from_numpy(p["conv_w"]))
+        self.conv.bias = torch.nn.Parameter(torch.from_numpy(p["conv_b"]))
+        self.mamba = torch.nn.Module()
+        self.mamba.A_log = torch.nn.Parameter(torch.from_numpy(p["a_log"]))
+        self.mamba.D = torch.nn.Parameter(torch.from_numpy(p["d"]))
+        self.mamba.x_proj = torch.nn.Linear(6, 5, bias=False)
+        self.mamba.x_proj.weight = torch.nn.Parameter(torch.from_numpy(p["xp"]))
+        self.gn = torch.nn.Module()
+        self.gn.weight = torch.nn.Parameter(torch.from_numpy(p["gn"]))
+        self.altho = torch.nn.Parameter(torch.from_numpy(p["altho"]))
+
+
+def test_adamw_and_schedule_match_optax():
+    """Five AdamW steps under a warmup-cosine schedule with a non-zero start,
+    fed the same gradients, against the JAX package's per-leaf optax AdamW
+    (weight-decay mask by name)."""
+    rng = np.random.default_rng(6)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    p = {"conv_w": f(4, 3, 3, 3), "conv_b": f(4), "a_log": f(6, 4), "d": f(6), "xp": f(5, 6),
+         "gn": f(4), "altho": np.array(0.5, np.float32)}
+    jtree = {"Conv_0": {"kernel": p["conv_w"], "bias": p["conv_b"]},
+             "mamba": {"A_log": p["a_log"], "D": p["d"], "x_proj_weight": p["xp"]},
+             "GroupNorm_0": {"scale": p["gn"]}, "altho": p["altho"]}
+    tkeys = {("Conv_0", "kernel"): "conv.weight", ("Conv_0", "bias"): "conv.bias",
+             ("mamba", "A_log"): "mamba.A_log", ("mamba", "D"): "mamba.D",
+             ("mamba", "x_proj_weight"): "mamba.x_proj.weight",
+             ("GroupNorm_0", "scale"): "gn.weight", ("altho",): "altho"}
+    args = dict(base_lr=1e-2, warmup_epochs=3, max_epochs=6, steps_per_epoch=2,
+                warmup_start_lr=1e-3)
+    jsched, tsched = jax_schedule(**args), warmup_cosine_epoch_schedule(**args)
+    for step in range(14):
+        assert_close(tsched(step), float(jsched(step)), 1e-6, f"lr({step})")
+    tx = jax_build_optimizer(jtree, lr=jsched, weight_decay=0.05, flat=False)
+    jmask = jax.tree_util.tree_leaves_with_path(jax_wd_mask(jtree))
+    model = _Tree(p)
+    tmask = wd_mask(model.named_parameters())
+    for path, m in jmask:
+        assert tmask[tkeys[tuple(k.key for k in path)]] == m
+    opt = build_optimizer(model, weight_decay=0.05)
+    jparams = jax.tree_util.tree_map(jnp.asarray, jtree)
+    state = tx.init(jparams)
+    for step in range(5):
+        grads = jax.tree_util.tree_map(
+            lambda a: np.asarray(rng.standard_normal(a.shape), np.float32), jtree)
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        named = dict(model.named_parameters())
+        for path, g in jax.tree_util.tree_leaves_with_path(grads):
+            named[tkeys[tuple(k.key for k in path)]].grad = torch.from_numpy(np.array(g))
+        set_lr(opt, tsched(step))
+        opt.step()
+    named = dict(model.named_parameters())
+    for path, v in jax.tree_util.tree_leaves_with_path(jparams):
+        key = tkeys[tuple(k.key for k in path)]
+        assert_close(named[key].detach().numpy(), np.asarray(v), 1e-6, key)
+
+
+# --- model pieces -----------------------------------------------------------
+
+def test_train_launch_counts_and_registry_flags():
+    """Forward and backward launches per train step, counted from the
+    modules; give_model passes remat and sideout_drop through."""
+    assert MM_Net(remat=False).kernel_launches_per_train_step() == {
+        "mamba_fused_scan": {"fwd": 150, "bwd": 150}, "tap_conv": {"fwd": 47, "bwd": 47}}
+    assert MM_Net().kernel_launches_per_train_step()["tap_conv"] == {"fwd": 94, "bwd": 47}
+    m = give_model("MM_Net", remat=False, sideout_drop=0.3, mamba_dtype=None, **TINY)
+    assert not m.remat and not any(x.remat for x in m.modules() if isinstance(x, MMConv))
+    m.remat = True  # one flag: MM_Net.remat sets and reads the MMConvs'
+    assert m.remat and all(x.remat for x in m.modules() if isinstance(x, MMConv))
+    n = m.kernel_launches_per_forward()["tap_conv"]
+    assert m.kernel_launches_per_train_step()["tap_conv"] == {"fwd": 2 * n, "bwd": n}
+    drops = [x.p for x in m.modules() if isinstance(x, Dropout2d)]
+    assert drops == [0.3] * 4
+
+
+def test_remat_recomputes_sample_conv_in_backward(monkeypatch):
+    """With remat the tap-conv + GroupNorm part of every MMConv runs twice in
+    a train step (forward, and again in backward); gradients are unchanged;
+    eval-mode and no-grad forwards run it once."""
+    calls = []
+    orig = MMConv._sample_conv
+    monkeypatch.setattr(MMConv, "_sample_conv",
+                        lambda self, *a: calls.append(1) or orig(self, *a))
+    x = np.random.default_rng(7).standard_normal((1, 3, 64, 64)).astype(np.float32)
+    x = torch.from_numpy(x)
+    grads = {}
+    for remat in (False, True):
+        m = MM_Net(mamba_dtype=None, remat=remat, sideout_drop=0.0,
+                   generator=torch.Generator().manual_seed(1), **TINY).train()
+        n = sum(isinstance(mod, MMConv) for mod in m.modules())
+        calls.clear()
+        m(x).square().mean().backward()
+        assert len(calls) == n * (2 if remat else 1)
+        grads[remat] = {k: p.grad.clone() for k, p in m.named_parameters()}
+        calls.clear()
+        with torch.no_grad():
+            m(x)
+        assert len(calls) == n
+    for k, g in grads[False].items():
+        torch.testing.assert_close(grads[True][k], g, rtol=1e-5, atol=1e-6)
+
+
+def test_train_one_epoch_runs_and_reports(capsys):
+    from mm_unet_tpu_torch.train.metrics import build_metrics
+
+    model = give_model("MM_Net", generator=torch.Generator().manual_seed(8),
+                       mamba_dtype=None, **TINY)
+    state = create_train_state(model, CONFIG, seed=0)
+    rng = np.random.default_rng(9)
+    batches = [{"image": rng.standard_normal((2, 3, 64, 64)).astype(np.float32),
+                "label": (rng.random((2, 1, 64, 64)) < 0.3).astype(np.float32)} for _ in range(2)]
+    metric = train_one_epoch(state, make_loss_fn({"dice_focal_loss": {}}, {}), batches,
+                             build_metrics())
+    assert state.step == 2 and model.training
+    assert set(metric) == {f"Train/mean {k}" for k in build_metrics()} | {"Train/images_per_sec"}
+    assert metric["Train/images_per_sec"] > 0 and np.isfinite(metric["Train/mean ACC"])
+    assert capsys.readouterr().out.count("Loss:") == 2
+
+
+# --- the whole step against JAX ----------------------------------------------
+
+class _RecordGrads:
+    """Wraps an optax transformation and keeps the last gradients in its
+    state, so the JAX `train_step` itself hands them back."""
+
+    def __new__(cls, tx):
+        def init(params):
+            return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+        def update(grads, state, params):
+            upd, inner = tx.update(grads, state[0], params)
+            return upd, (inner, grads)
+
+        return optax.GradientTransformation(init, update)
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    """(variables before, after one JAX train_step, loss, gradients, batch)
+    as numpy, for the tiny f32 MM_Net in train mode."""
+    from mm_unet_tpu.utils.config import ConfigDict
+
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
+    y = (rng.random((2, 1, 64, 64)) < 0.2).astype(np.float32)
+    weight = np.array([1.0, 0.5], np.float32)
+    jm = JMM_Net(mamba_dtype=None, remat=False, sideout_drop=0.0, **TINY)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))
+    variables = randomize_batch_stats(variables, np.random.default_rng(11))
+    tcfg = ConfigDict(CONFIG).trainer
+    schedule = jax_schedule(tcfg.lr, tcfg.warmup, tcfg.num_epochs, tcfg.steps_per_epoch)
+    tx = _RecordGrads(jax_build_optimizer(variables["params"], lr=schedule,
+                                          weight_decay=tcfg.weight_decay))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                        batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
+                        opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    loss_fn = jax_make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    new, scalars, _ = jax_train_step(state, jnp.asarray(x), jnp.asarray(y),
+                                     jax.random.PRNGKey(1), loss_fn,
+                                     sample_weight=jnp.asarray(weight))
+    after = to_numpy({"params": new.params, "batch_stats": new.batch_stats})
+    return (variables, after, float(scalars["total_loss"]), to_numpy(new.opt_state[1]),
+            (x, y, weight))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_matches_jax(jax_step, remat):
+    variables, after, want_loss, jgrads, (x, y, weight) = jax_step
+    model = load_torch(MM_Net(mamba_dtype=None, remat=remat, sideout_drop=0.0, **TINY),
+                       variables, PAIRS)
+    state = create_train_state(model, CONFIG)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    scalars, stats = train_step(state, torch.from_numpy(x), torch.from_numpy(y), loss_fn,
+                                sample_weight=torch.from_numpy(weight))
+    assert state.step == 1 and state.optimizer.param_groups[0]["lr"] == 1e-3
+    assert_close(scalars["total_loss"].item(), want_loss, 1e-5, "loss")
+    assert stats["inter"].shape == (2, 1) and stats["npix"] == 64 * 64
+    want_grads = jax_grads_to_torch(jgrads, PAIRS)
+    named = dict(model.named_parameters())
+    assert set(want_grads) == set(named)
+    settled = {}  # per parameter: elements whose gradient is clear of 0
+    for k, g in want_grads.items():
+        assert_close(named[k].grad.numpy(), g.numpy(), GRAD_TOL, f"grad {k}")
+        g = g.numpy()
+        settled[k] = np.abs(g) > GRAD_TOL * (1.0 + np.abs(g).max())
+    # AdamW's first update is lr * g / (|g| + eps), about lr * sign(g): where
+    # |g| is within the gradient tolerance of 0 (or exactly 0, as for the
+    # unused x-offset channels), the two packages may move up to 2 lr apart,
+    # so those elements are held only through their gradients above
+    n_settled = sum(int(m.sum()) for m in settled.values())
+    assert n_settled > 0.5 * sum(m.size for m in settled.values())  # 75% at this seed
+    want_after = jax_to_torch_state_dict(after, PAIRS)
+    sd = model.state_dict()
+    for k, v in want_after.items():
+        if _DT_PROJ.search(k):
+            # the JAX package decays its stored dt_proj weight, w + dt_rank**-0.5;
+            # the port decays w, as the torch reference does (ROADMAP.md queue 3):
+            # after one step the two differ by lr * wd * dt_rank**-0.5
+            v = v + 1e-3 * 0.05 * v.shape[1] ** -0.5
+        if k.endswith(("running_mean", "running_var")):
+            assert_close(sd[k].numpy(), v.numpy(), 1e-4, k)
+        elif settled[k].any():
+            m = settled[k]
+            assert_close(sd[k].numpy()[m], v.numpy()[m], 1e-5, k)
+
+
+def test_jax_grads_to_torch_inverts_layout_only(jax_step):
+    """Gradients take each pair kind's layout inverse, but not the dt_proj
+    weight's constant shift (its derivative is the identity)."""
+    variables = jax_step[0]
+    g = jax_grads_to_torch(variables["params"], PAIRS)
+    sd = jax_to_torch_state_dict(variables, PAIRS)
+    mm = variables["params"]["ResidualBlock_0"]["MMConv_0"]["mamba"]
+    np.testing.assert_array_equal(g["encoder2.0.block1.0.mamba.dt_proj.weight"].numpy(),
+                                  mm["dt_proj_weight"])
+    np.testing.assert_array_equal(g["encoder1.0.weight"].numpy(), sd["encoder1.0.weight"].numpy())
+    assert not any(k.endswith(("running_mean", "running_var")) for k in g)
+    with pytest.raises(ValueError, match="missing"):
+        jax_grads_to_torch(variables["params"], PAIRS + [(("nope", "kernel"), "nope.w", "conv")])
+
+
+def test_param_groups_match_jax_wd_mask(jax_step):
+    """The two AdamW groups split the tiny MM_Net's parameters exactly as
+    the JAX package's wd_mask splits its params, through the pair table."""
+    variables = jax_step[0]
+    jmask = {tuple(k.key for k in path): m for path, m in
+             jax.tree_util.tree_leaves_with_path(jax_wd_mask(variables["params"]))}
+    model = MM_Net(mamba_dtype=None, **TINY)
+    tmask = wd_mask(model.named_parameters())
+    pairs = [(fp, tk) for fp, tk, _ in PAIRS if fp[-1] not in ("mean", "var")]
+    assert len(pairs) == len(tmask) == len(jmask)
+    for fp, tk in pairs:
+        assert tmask[tk] == jmask[tuple(fp)], (fp, tk)
+    groups = build_optimizer(model).param_groups
+    assert [len(g["params"]) for g in groups] == [sum(tmask.values()),
+                                                  len(tmask) - sum(tmask.values())]
+    assert [g["weight_decay"] for g in groups] == [0.05, 0.0]
+
+
+def test_train_modules_never_import_jax():
+    code = (
+        "import sys\n"
+        "import mm_unet_tpu_torch.train.trainer, mm_unet_tpu_torch.train.optim\n"
+        "import mm_unet_tpu_torch.train.loop, mm_unet_tpu_torch.models.layers\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
