@@ -46,6 +46,13 @@ _SIGNATURES = {
     "tap_conv_fwd": [VP] * 6 + [I32] * 7 + [VP],
     # feat, y, kernel, shifts, dout, dfeat, dy, p_dk, B, H, W, C, F, K, ms, is_bf16, stream
     "tap_conv_bwd": [VP] * 8 + [I32] * 8 + [VP],
+    # u, delta, z, B, C, A, bias, D, out, state, dtsum, last, bc_strides (int64[8]),
+    # b_gdiv, c_gdiv, b_var, c_var, B, Dm, L, N, T, span, chans, softplus, is_bf16,
+    # bc_bf16, stream
+    "selective_scan_fwd": [VP] * 13 + [I32] * 14 + [VP],
+    # u, delta, z, B, C, A, bias, D, state, dtsum, dout, du, ddelta, dz, gcarry, p_dA,
+    # p_dD, p_dbias, p_dB, p_dC, bc_strides, then the ints and stream of the forward
+    "selective_scan_bwd": [VP] * 21 + [I32] * 14 + [VP],
 }
 
 

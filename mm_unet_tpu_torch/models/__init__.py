@@ -1,4 +1,4 @@
-"""Models: MM_Net and its blocks."""
+"""Models: MM_Net, dkDualNet and their blocks."""
 
 from mm_unet_tpu_torch.models.registry import give_model
 

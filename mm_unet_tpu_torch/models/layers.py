@@ -35,6 +35,18 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
 
 
+def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """NCHW linear upsampling with half-pixel centres, `jax.image.resize(...,
+    "linear")` (dkDualNet's `_up`; for upsampling its antialiasing is a
+    no-op and its edge renormalisation equals clamping the source
+    coordinate, so this is `F.interpolate(align_corners=False)`)."""
+    if tuple(x.shape[2:]) == tuple(out_hw):
+        return x
+    if any(o < i for o, i in zip(out_hw, x.shape[2:])):
+        raise ValueError(f"resize_linear upsamples only: {tuple(x.shape[2:])} -> {tuple(out_hw)}")
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+
+
 def _cdtype(compute_dtype: Optional[torch.dtype], x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     return compute_dtype or torch.promote_types(x.dtype, w.dtype)
 
@@ -115,6 +127,40 @@ class Dropout2d(nn.Module):
         keep = 1.0 - self.p
         u = torch.rand(x.shape[0], x.shape[1], 1, 1, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth in train mode: each sample's branch is kept with
+    probability 1 - p and scaled by 1 / (1 - p), or zeroed (dkDualNet's
+    `dp`, `dkdualnet.py:70-77`). The keep mask is drawn from `generator` (a
+    `torch.Generator` on the input's device) when one is set. Identity in
+    eval mode or at p = 0."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape[0], *([1] * (x.ndim - 1)), generator=self.generator,
+                       device=x.device)
+        return x * (u < keep).to(x.dtype) / keep
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last (channel) axis, reduced in f32 and returned
+    in the promotion of input and weight dtypes (flax's `LayerNorm`)."""
+
+    def __init__(self, num_features: int, eps: float):
+        super().__init__(num_features, eps=eps)
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(_cdtype(None, x, self.weight))
 
 
 class GroupNorm(nn.GroupNorm):

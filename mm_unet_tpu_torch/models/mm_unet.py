@@ -38,7 +38,7 @@ from mm_unet_tpu_torch.models.layers import (
     nhwc_to_nchw,
     resize_bilinear_align_corners,
 )
-from mm_unet_tpu_torch.models.mamba import Mamba
+from mm_unet_tpu_torch.models.mamba import Mamba, kernel_launches
 from mm_unet_tpu_torch.ops.geometry import (
     accumulate_offsets_from_center_last,
     inverse_two_row_flatten_tokens,
@@ -344,10 +344,9 @@ class MM_Net(nn.Module):
 
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each kernel one forward makes, counted from the
-        modules: three fused scans per Mamba, one tap-conv per MMConv."""
-        mambas = sum(isinstance(m, Mamba) for m in self.modules())
+        modules: three fused scans per (v3) Mamba, one tap-conv per MMConv."""
         mmconvs = sum(isinstance(m, MMConv) for m in self.modules())
-        return {"mamba_fused_scan": 3 * mambas, "tap_conv": mmconvs}
+        return {**kernel_launches(self), "tap_conv": mmconvs}
 
     def kernel_launches_per_train_step(self) -> dict:
         """Forward and backward launches of each kernel in one train step

@@ -7,8 +7,8 @@ runs on its own:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 The shapes are small but cut the sequence into several chunks (so the chunk
-combine of the scan runs) and take both tile shapes of the tap-conv kernel
-(F <= 16 and wider). Tolerance, as max |kernel - plain| <= tol * (1 + max
+combine of the scans runs) and take both tile shapes of the tap-conv kernel
+(F <= 16 and wider); the selective scan takes every layout and flag it has. Tolerance, as max |kernel - plain| <= tol * (1 + max
 |plain|): f32 2e-4 (summation order only), bf16 1.6e-2 (two bf16 ulps: an
 f32 sum on a rounding boundary may round the other way).
 """
@@ -159,3 +159,97 @@ def test_tap_conv_backward_matches_plain(hw, C, F, K, dtype):
     want = _grads(lambda *a: tap_conv_ref(*a, shifts), args, dout)
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     _close_grads(got, want, dtype, ["feat", "y", "kernel", "bias"])
+
+
+# The chunked selective scan (csrc/selective_scan_{fwd,bwd}.cu) through the
+# `selective_scan` entry point against its plain version on the card: the
+# fused flags with grouped B/C (channels per group not a multiple of the
+# block), the bare scan with its last state, a constant (D, N) B/C, a state
+# count that is not a power of two, one chunk, and a B/C read through the
+# strides of a slice. Forward tolerance as TOL, gradients as BWD_TOL.
+SCAN_CASES = [
+    # batch, dim, L, N, B/C kind (G, or "const"), fused flags, last state
+    (2, 12, 300, 16, 2, True, False),
+    (2, 18, 700, 16, 3, True, False),
+    (2, 12, 300, 16, 1, False, True),
+    (2, 40, 200, 16, "const", True, False),
+    (2, 9, 150, 5, 3, True, True),
+    (1, 6, 50, 16, 1, True, False),
+    (2, 96, 260, 16, "slice", True, False),
+]
+
+
+def _scan_args(dev, batch, dim, L, N, bc, fused, dtype):
+    rng = np.random.default_rng(batch * dim + L + N)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    u = f(batch, dim, L).to(dtype)
+    delta = (f(batch, dim, L) * 0.5 if fused else f(batch, dim, L).abs() * 0.2).to(dtype)
+    A = -torch.exp(f(dim, N) * 0.5)
+    if bc == "const":
+        B, C = f(dim, N), f(dim, N)
+    elif bc == "slice":  # B and C as views into one (B, G, R + 2N, L) tensor, as Mamba passes them
+        x_dbl = f(batch, 2, 3 + 2 * N, L).to(dtype)
+        B, C = x_dbl[:, :, 3:3 + N], x_dbl[:, :, 3 + N:]
+    elif bc == 1:
+        B, C = f(batch, N, L).to(dtype), f(batch, N, L).to(dtype)
+    else:
+        B, C = f(batch, bc, N, L).to(dtype), f(batch, bc, N, L).to(dtype)
+    D, z, bias = (f(dim), f(batch, dim, L).to(dtype), f(dim) * 0.1) if fused else (None, None, None)
+    return [u, delta, A, B, C, D, z, bias], f(batch, dim, L).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,dim,L,N,bc,fused,last", SCAN_CASES)
+def test_selective_scan_kernels_match_plain(batch, dim, L, N, bc, fused, last, dtype):
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.selective_scan import selective_scan, selective_scan_ref
+
+    dev = _device()
+    args, dout = _scan_args(dev, batch, dim, L, N, bc, fused, dtype)
+
+    def run(fn):
+        ins = [None if t is None else t.detach().clone().requires_grad_(True) for t in args]
+        res = fn(*ins[:5], D=ins[5], z=ins[6], delta_bias=ins[7], delta_softplus=fused,
+                 return_last_state=last)
+        out = res[0] if last else res
+        out.backward(dout)
+        return out, (res[1] if last else None), [None if t is None else t.grad for t in ins]
+
+    before = (selective_scan_chunked.launches, selective_scan_chunked.bwd_launches)
+    got, got_last, got_g = run(selective_scan)
+    assert (selective_scan_chunked.launches, selective_scan_chunked.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want, want_last, want_g = run(selective_scan_ref)
+    assert got.dtype == dtype and got.shape == (batch, dim, L)
+    _close(got, want, dtype)
+    if last:
+        _close(got_last, want_last, torch.float32)
+    for g, w, t in zip(got_g, want_g, args):
+        if t is not None:
+            assert g.dtype == t.dtype and g.shape == t.shape
+    _close_grads(got_g, want_g, dtype, ["u", "delta", "A", "B", "C", "D", "z", "delta_bias"])
+
+
+@pytest.mark.cuda
+def test_dkdualnet_routes_agree_on_the_card():
+    """A small dkDualNet in train mode: the megakernel route and the grouped
+    scan route, logits and every parameter gradient, f32."""
+    from mm_unet_tpu_torch.models import give_model
+
+    dev = _device()
+    m = give_model("dkDualNet", device=dev, generator=torch.Generator().manual_seed(0),
+                   dims=(16, 32, 64, 128), depths=(1, 1, 1, 1), drop_path_rate=0.0).train()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 64, 64))
+                         .astype(np.float32)).to(dev)
+    res = {}
+    for impl in (None, "pallas"):
+        m.scan_impl = impl
+        m.zero_grad()
+        out = m(x)
+        out.square().mean().backward()
+        res[impl] = (out.detach(), {k: p.grad.clone() for k, p in m.named_parameters()})
+    _close(res["pallas"][0], res[None][0], torch.float32)
+    for k, g in res[None][1].items():
+        err = (res["pallas"][1][k] - g).abs().max().item()
+        assert err <= 1e-3 * (1.0 + g.abs().max().item()), (k, err)

@@ -88,7 +88,7 @@ def test_sliding_window_matches_jax_and_model():
     """A sliding-window pass over the tiny port MM_Net: padded to the window
     in H, two windows in W, gaussian blend — against the JAX inferer driving
     the same torch predictor."""
-    model = give_model("MM_Net", generator=torch.Generator().manual_seed(3),
+    model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(3),
                        mamba_dtype=None, **TINY)
     predictor = make_predictor(model)
     x = np.random.default_rng(2).standard_normal((2, 3, 40, 96)).astype(np.float32)
@@ -152,7 +152,7 @@ def test_val_one_epoch_matches_its_parts():
     from mm_unet_tpu.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.metrics import build_metrics as port_build_metrics
 
-    model = give_model("MM_Net", generator=torch.Generator().manual_seed(5),
+    model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(5),
                        mamba_dtype=None, **TINY)
     rng = np.random.default_rng(6)
     batches = [{"image": rng.standard_normal((n, 3, 64, 64)).astype(np.float32),

@@ -64,7 +64,13 @@ from mm_unet_tpu_torch.train.optim import (
 from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
 from mm_unet_tpu_torch.utils.convert import jax_grads_to_torch, jax_to_torch_state_dict
 from test_tap_conv import _ref as jax_tap_conv_xla
-from torch_port_harness import assert_close, load_torch, randomize_batch_stats, to_numpy
+from torch_port_harness import (
+    assert_close,
+    load_torch,
+    randomize_batch_stats,
+    record_grads,
+    to_numpy,
+)
 
 TINY = dict(depths=(1, 1, 1, 1), num_slices_list=(4, 4, 4, 4))
 PAIRS = mm_net_pairs(depths=TINY["depths"])
@@ -293,7 +299,7 @@ def test_train_launch_counts_and_registry_flags():
     assert MM_Net(remat=False).kernel_launches_per_train_step() == {
         "mamba_fused_scan": {"fwd": 150, "bwd": 150}, "tap_conv": {"fwd": 47, "bwd": 47}}
     assert MM_Net().kernel_launches_per_train_step()["tap_conv"] == {"fwd": 94, "bwd": 47}
-    m = give_model("MM_Net", remat=False, sideout_drop=0.3, mamba_dtype=None, **TINY)
+    m = give_model("MM_Net", device="cpu", remat=False, sideout_drop=0.3, mamba_dtype=None, **TINY)
     assert not m.remat and not any(x.remat for x in m.modules() if isinstance(x, MMConv))
     m.remat = True  # one flag: MM_Net.remat sets and reads the MMConvs'
     assert m.remat and all(x.remat for x in m.modules() if isinstance(x, MMConv))
@@ -333,7 +339,7 @@ def test_remat_recomputes_sample_conv_in_backward(monkeypatch):
 def test_train_one_epoch_runs_and_reports(capsys):
     from mm_unet_tpu_torch.train.metrics import build_metrics
 
-    model = give_model("MM_Net", generator=torch.Generator().manual_seed(8),
+    model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(8),
                        mamba_dtype=None, **TINY)
     state = create_train_state(model, CONFIG, seed=0)
     rng = np.random.default_rng(9)
@@ -348,21 +354,6 @@ def test_train_one_epoch_runs_and_reports(capsys):
 
 
 # --- the whole step against JAX ----------------------------------------------
-
-class _RecordGrads:
-    """Wraps an optax transformation and keeps the last gradients in its
-    state, so the JAX `train_step` itself hands them back."""
-
-    def __new__(cls, tx):
-        def init(params):
-            return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
-
-        def update(grads, state, params):
-            upd, inner = tx.update(grads, state[0], params)
-            return upd, (inner, grads)
-
-        return optax.GradientTransformation(init, update)
-
 
 @pytest.fixture(scope="module")
 def jax_step():
@@ -379,7 +370,7 @@ def jax_step():
     variables = randomize_batch_stats(variables, np.random.default_rng(11))
     tcfg = ConfigDict(CONFIG).trainer
     schedule = jax_schedule(tcfg.lr, tcfg.warmup, tcfg.num_epochs, tcfg.steps_per_epoch)
-    tx = _RecordGrads(jax_build_optimizer(variables["params"], lr=schedule,
+    tx = record_grads(jax_build_optimizer(variables["params"], lr=schedule,
                                           weight_decay=tcfg.weight_decay))
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
