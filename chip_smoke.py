@@ -30,7 +30,10 @@ any failure ends the run non-zero):
    of 8 at 512²; checks a finite loss at every step, a last loss below the
    first, and each kernel's forward and backward launches per step against
    the modules' counts (and one step with remat on); times train images/s
-   and reads the peak device memory;
+   and reads the peak device memory; then, as part of phase 1, times the
+   fused Mamba backward alone at every shape one of those steps gave it
+   (read by forward hooks on the Mambas), with its bound and its launches
+   per step (`phase1 mamba_fused_scan_bwd_step` lines);
 5. dkDualNet at full width, f32, the same weights on both of its Mambas'
    routes (a: the fused-scan megakernels; b: the grouped selective scan):
    eval logits at 8x3x512² and every parameter gradient of one train-mode
@@ -150,6 +153,17 @@ def scan_work(B, Dm, L, N, G, es, bes, streams, backward, const_bc=False):
     return es * B * Dm * L * (streams + 1) + bc, B * Dm * L * (8 * N + 10)
 
 
+def mamba_inputs(rn, dev, B, D, R, L, N=16, W=4):
+    """xz (B, 1, 2D, L) and the seven weights of one fused Mamba scan, the
+    A rows those of Mamba's init (-1 .. -N), in that order from `rn`."""
+    xz = torch.cat([rn(B, 1, D, L, scale=0.5), rn(B, 1, D, L)], dim=2)
+    w = [rn(1, D, W, scale=0.4), rn(1, D, scale=0.1), rn(1, R + 2 * N, D, scale=D ** -0.5),
+         rn(1, D, R, scale=R ** -0.5), rn(1, D, scale=0.1) - 4.0,
+         -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(1, D, 1)),
+         torch.ones(1, D, device=dev)]
+    return xz, w
+
+
 def smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -202,11 +216,7 @@ def phase1_kernels(gen) -> dict:
     # (d_model 3 -> D=6, R=1, L=256²), batch 2, N=16, W=4
     for D, R, L in ((128, 4, 16384), (6, 1, 65536)):
         N, W, B = 16, 4, 2
-        xz = torch.cat([rn(B, 1, D, L, scale=0.5), rn(B, 1, D, L)], dim=2)
-        w = (rn(1, D, W, scale=0.4), rn(1, D, scale=0.1), rn(1, R + 2 * N, D, scale=D ** -0.5),
-             rn(1, D, R, scale=R ** -0.5), rn(1, D, scale=0.1) - 4.0,
-             -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(1, D, 1)),
-             torch.ones(1, D, device=dev))
+        xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
         for dtype in (torch.float32, torch.bfloat16):
             x = xz.to(dtype)
             for rev in (False, True):
@@ -377,11 +387,7 @@ def phase1_backward(gen) -> dict:
     # the same shapes as the forward comparison
     for D, R, L in ((128, 4, 16384), (6, 1, 65536)):
         N, W, B = 16, 4, 2
-        xz = torch.cat([rn(B, 1, D, L, scale=0.5), rn(B, 1, D, L)], dim=2)
-        w = [rn(1, D, W, scale=0.4), rn(1, D, scale=0.1), rn(1, R + 2 * N, D, scale=D ** -0.5),
-             rn(1, D, R, scale=R ** -0.5), rn(1, D, scale=0.1) - 4.0,
-             -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(1, D, 1)),
-             torch.ones(1, D, device=dev)]
+        xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
         dout = rn(B, 1, D, L)
         names = ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"]
         for dtype in (torch.float32, torch.bfloat16):
@@ -408,6 +414,75 @@ def phase1_backward(gen) -> dict:
     if failed:
         raise SystemExit(f"phase1 FAILED: {len(failed)} backward comparisons out of tolerance")
     return results
+
+
+def mamba_step_shapes(model) -> tuple[dict, list]:
+    """({shape: fused-scan calls}, hooks): forward hooks on the model's
+    megakernel Mambas that count, per forward, one call per direction at
+    (batch, d_inner, dt_rank, d_state, conv width, tokens, reverse, stream
+    dtype); a train step's backward launches kernel 2 once per call."""
+    from mm_unet_tpu_torch.models.mamba import DIRECTIONS, Mamba
+
+    shapes: dict = {}
+
+    def record(mod, inputs, _):
+        bsz, length, _ = inputs[0].shape
+        dtype = str(mod.dtype or inputs[0].dtype)[6:]
+        for sfx in DIRECTIONS[mod.bimamba_type]:
+            key = (bsz, mod.d_inner, mod.dt_rank, mod.d_state, mod.conv1d.weight.shape[-1],
+                   length, sfx == "_b", dtype)
+            shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, Mamba) and m.use_mega]
+    return shapes, hooks
+
+
+def kernel_device_ms(fn, fragment: str, reps: int = 3) -> float:
+    """Mean device time per call of fn() (already warm) spent in the kernels
+    whose names contain `fragment`, by torch.profiler: without the host's
+    share, which decides `cuda_ms` at small shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and fragment in e.key) / 1e3 / reps
+
+
+def phase1_step_shapes(shapes: dict, seed: int) -> list:
+    """Kernel 2 alone at every shape that a train step gives it (from
+    `mamba_step_shapes`): `torch.autograd.grad` through `mamba_fused_scan`,
+    mean of 3 calls after one (`ms`, CUDA events, host included), and the
+    device time of its kernels in 3 more (`kernel_ms`); random inputs made
+    on the card. Timing only: the comparisons are phase 1's."""
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+
+    dev = torch.device("cuda")
+    cgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=cgen, device=dev) * scale
+
+    recs = []
+    for (B, D, R, N, W, L, rev, dt), calls in sorted(shapes.items()):
+        dtype = getattr(torch, dt)
+        xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
+        dout = rn(B, 1, D, L).to(dtype)
+        out, live, _ = grads_of(lambda *a: mamba_fused_scan(*a, reverse=rev),
+                                [xz.to(dtype), *w], dout)
+        call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
+        ms = cuda_ms(call, reps=3)
+        bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
+        rec = dict(B=B, D=D, R=R, N=N, W=W, L=L, reverse=rev, dtype=dt, ms=ms,
+                   kernel_ms=kernel_device_ms(call, "mamba_bwd_"), bound_ms=bms, bound_by=by,
+                   launches_per_step=calls)
+        print(f"phase1 mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
+        recs.append(rec)
+        del xz, w, dout, out, live
+    return recs
 
 
 def phase1_scan(gen) -> dict:
@@ -622,7 +697,8 @@ def phase3_serving(seed: int, profile: bool = False) -> dict:
 
 def phase4_training(seed: int, profile: bool = False) -> dict:
     """Train steps of the full-width bf16 MM_Net at 512² batch 8. Returns
-    each kernel's launches over the run (forward and backward)."""
+    each kernel's launches over the run (forward and backward) and the
+    fused scans' shapes in one step (`mamba_step_shapes`)."""
     from mm_unet_tpu_torch.data import synthetic_batch
     from mm_unet_tpu_torch.models import give_model
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
@@ -654,8 +730,12 @@ def phase4_training(seed: int, profile: bool = False) -> dict:
     expect = model.kernel_launches_per_train_step()
     torch.cuda.reset_peak_memory_stats()
     losses, times, counts_ok = [], [], True
-    for _ in range(TRAIN_STEPS):
+    shapes, hooks = mamba_step_shapes(model)
+    for i in range(TRAIN_STEPS):
         loss, dt, got = step()
+        if i == 0:  # the shapes of one step
+            for h in hooks:
+                h.remove()
         losses.append(loss)
         times.append(dt)
         counts_ok = counts_ok and got == expect
@@ -667,10 +747,12 @@ def phase4_training(seed: int, profile: bool = False) -> dict:
     model.remat = True
     loss_r, dt_r, got_r = step()
     expect_r = model.kernel_launches_per_train_step()
+    shapes_ok = sum(shapes.values()) == expect["mamba_fused_scan"]["bwd"]
     ok = (all(np.isfinite(losses)) and np.isfinite(loss_r) and losses[-1] < losses[0]
-          and counts_ok and got_r == expect_r and state.step == TRAIN_STEPS + 1)
+          and counts_ok and got_r == expect_r and state.step == TRAIN_STEPS + 1 and shapes_ok)
     print("phase4 train " + json.dumps(dict(
         batch=8, size=512, dtype="bfloat16", losses=losses, launches_per_step=expect,
+        mamba_shapes=len(shapes), mamba_shapes_cover_launches=shapes_ok,
         counts_ok=counts_ok, remat_step=dict(loss=loss_r, seconds=dt_r, launches=got_r,
                                              expected=expect_r),
         step_seconds=times, train_images_per_sec=rate, max_memory_allocated_bytes=peak,
@@ -680,7 +762,7 @@ def phase4_training(seed: int, profile: bool = False) -> dict:
     if profile:
         model.remat = False
         profile_step("train", lambda: train_step(state, x, y, loss_fn))
-    return totals
+    return totals, shapes
 
 
 def phase5_dkdualnet(seed: int) -> None:
@@ -881,7 +963,8 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
 # kernel-name fragments -> the layer that launched the kernel
 _KERNEL_GROUPS = (
     ("mamba_fused_scan", ("mamba_chunk_kernel", "mamba_combine_kernel")),
-    ("mamba_fused_scan_bwd", ("mamba_bwd_",)),
+    ("mamba_fused_scan_bwd pass C", ("mamba_bwd_chunk",)),
+    ("mamba_fused_scan_bwd passes A, B, D", ("mamba_bwd_",)),
     ("tap_conv", ("tap_conv_kernel",)),
     ("tap_conv_bwd", ("tap_dfeat_kernel", "tap_dkernel_kernel")),
     ("selective_scan", ("scan_fwd_kernel", "scan_combine_kernel")),
@@ -952,8 +1035,10 @@ def main() -> None:
     phase2_model(args.seed)
     phase2_gradients(args.seed)
     serve = phase3_serving(args.seed, args.profile)
-    train = phase4_training(args.seed, args.profile)
+    train, shapes = phase4_training(args.seed, args.profile)
     print(f"phases 2-4 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    steps = phase1_step_shapes(shapes, args.seed)
+    print(f"phase1 step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase5_dkdualnet(args.seed)
     dk = phase6_dkdualnet_path(args.seed, args.profile)
     print(f"phases 5-6 done at {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -986,7 +1071,11 @@ def main() -> None:
         summary("mamba_fused_scan", "mm_unet_tpu_torch/csrc/mamba_fused_fwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:240", mm),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
-                "mm_unet_tpu/ops/mamba_fused.py:288", mm),
+                "mm_unet_tpu/ops/mamba_fused.py:288", mm,
+                **{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps)
+                   for k in ("ms", "kernel_ms", "bound_ms")},
+                step_shapes=[{k: r[k] for k in ("D", "L", "reverse", "ms", "kernel_ms", "bound_ms",
+                                                "launches_per_step")} for r in steps]),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",
