@@ -26,16 +26,19 @@ __device__ __forceinline__ float conv_pre(const TI* x, const float* cw, float cb
 
 // u_s [D][T] = round(silu(conv)), xd_s [R+2N][T] = x_proj @ u (the R dt
 // rows rounded), dt_s [D][T] = softplus(dt_proj @ x_dbl[:R] + dt_b); all
-// zero past L (an identity step of the scan). Ends with __syncthreads().
-template <typename TI>
+// zero past L (an identity step of the scan). Each row takes T + PAD
+// floats: the backward's odd row length puts neighbouring channels' rows,
+// and the N state rows read at one token, in distinct shared-memory banks.
+// Ends with __syncthreads().
+template <typename TI, int PAD = 0>
 __device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R, int N, int W,
                                 bool reverse, const float* cw, const float* cb, const float* xp,
                                 const float* dtw, const float* dtb, float* u_s, float* dt_s,
                                 float* xd_s) {
-  const int E = R + 2 * N;
+  const int E = R + 2 * N, ld = T + PAD;
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
     const int d = i / T, t = i - d * T, gt = t0 + t;
-    u_s[i] = gt < L
+    u_s[PAD ? d * ld + t : i] = gt < L
         ? round_to<TI>(silu(conv_pre(x + (size_t)d * L, cw + d * W, cb[d], gt, L, W, reverse)))
         : 0.f;
   }
@@ -44,8 +47,8 @@ __device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R,
     const int e = i / T, t = i - e * T;
     const float* row = xp + (size_t)e * D;
     float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += row[d] * u_s[d * T + t];
-    xd_s[i] = e < R ? round_to<TI>(acc) : acc;
+    for (int d = 0; d < D; ++d) acc += row[d] * u_s[d * ld + t];
+    xd_s[PAD ? e * ld + t : i] = e < R ? round_to<TI>(acc) : acc;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
@@ -53,10 +56,10 @@ __device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R,
     float v = 0.f;
     if (t0 + t < L) {
       float acc = dtb[d];
-      for (int r = 0; r < R; ++r) acc += dtw[d * R + r] * xd_s[r * T + t];
+      for (int r = 0; r < R; ++r) acc += dtw[d * R + r] * xd_s[r * ld + t];
       v = softplus(acc);
     }
-    dt_s[i] = v;
+    dt_s[PAD ? d * ld + t : i] = v;
   }
   __syncthreads();
 }

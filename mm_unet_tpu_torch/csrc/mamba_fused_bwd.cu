@@ -85,15 +85,15 @@ __device__ __forceinline__ Row row_of(const BwdArgs& a, int g) {
           a.Dskip + (size_t)g * D};
 }
 
-// dy_s [D][T] = dout * silu(z), 0 past L
+// dy_s [D][T + 1] = dout * silu(z), 0 past L
 template <typename TI>
 __device__ void load_dy(const BwdArgs& a, int bg, int t0, float* dy_s) {
   const int D = a.D, L = a.L, T = a.T;
   const TI* z = static_cast<const TI*>(a.xz) + ((size_t)bg * 2 + 1) * D * L;
   const TI* dout = static_cast<const TI*>(a.dout) + (size_t)bg * D * L;
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, gt = t0 + (i - d * T);
-    dy_s[i] = gt < L ? mmu::to_f32(dout[(size_t)d * L + gt]) *
+    const int d = i / T, t = i - d * T, gt = t0 + t;
+    dy_s[d * (T + 1) + t] = gt < L ? mmu::to_f32(dout[(size_t)d * L + gt]) *
                            mmu::silu(mmu::to_f32(z[(size_t)d * L + gt]))
                      : 0.f;
   }
@@ -103,18 +103,18 @@ __device__ void load_dy(const BwdArgs& a, int bg, int t0, float* dy_s) {
 template <typename TI>
 __global__ void mamba_bwd_local_kernel(BwdArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, N = a.N, R = a.R;
+  const int D = a.D, T = a.T, N = a.N, R = a.R, ld = T + 1;
   float* u_s = smem;
-  float* dt_s = u_s + D * T;
-  float* xd_s = dt_s + D * T;
-  float* dy_s = xd_s + (R + 2 * N) * T;
+  float* dt_s = u_s + D * ld;
+  float* xd_s = dt_s + D * ld;
+  float* dy_s = xd_s + (R + 2 * N) * ld;
   const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
   const Row w = row_of(a, bg % a.G);
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * a.L;
   load_dy<TI>(a, bg, t0, dy_s);
-  mmu::recompute_chunk<TI>(x, D, a.L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
-                           w.dtb, u_s, dt_s, xd_s);
-  const float* Cs = xd_s + (R + N) * T;
+  mmu::recompute_chunk<TI, 1>(x, D, a.L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
+                              w.dtb, u_s, dt_s, xd_s);
+  const float* Cs = xd_s + (R + N) * ld;
   const size_t sbase = (size_t)bg * a.nC + c;
   for (int p = threadIdx.x; p < D * N; p += blockDim.x) {
     const int d = p / N, n = p - d * N;
@@ -122,8 +122,8 @@ __global__ void mamba_bwd_local_kernel(BwdArgs a) {
     float carry = 0.f;
     for (int s = 0; s < T; ++s) {
       const int t = a.reverse ? s : T - 1 - s;  // against the scan direction
-      const float g = dy_s[d * T + t] * Cs[n * T + t] + carry;
-      carry = expf(dt_s[d * T + t] * a_dn) * g;
+      const float g = dy_s[d * ld + t] * Cs[n * ld + t] + carry;
+      carry = expf(dt_s[d * ld + t] * a_dn) * g;
     }
     a.gcarry[sbase * D * N + p] = carry;
   }
@@ -154,25 +154,25 @@ template <typename TI>
 __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const int D = a.D, T = a.T, N = a.N, R = a.R, L = a.L;
-  const int E = R + 2 * N;
-  float* u_s = smem;           // [D][T] conv output
-  float* dt_s = u_s + D * T;   // [D][T] dt, overwritten by ddt_raw
-  float* xd_s = dt_s + D * T;  // [E][T] x_dbl
-  float* dy_s = xd_s + E * T;  // [D][T] dy, overwritten by y_pre, then dx_dbl's dt rows
-  float* du_s = dy_s + D * T;  // [D][T] du of the scan
-  float* dB_s = du_s + D * T;  // [N][T] dB, then [N][T] dC right after it
-  float* dC_s = dB_s + N * T;
+  const int E = R + 2 * N, ld = T + 1;  // rows of T + 1 floats
+  float* u_s = smem;            // [D] rows: conv output
+  float* dt_s = u_s + D * ld;   // [D] dt, overwritten by ddt_raw
+  float* xd_s = dt_s + D * ld;  // [E] x_dbl
+  float* dy_s = xd_s + E * ld;  // [D] dy, overwritten by y_pre, then dx_dbl's dt rows
+  float* du_s = dy_s + D * ld;  // [D] du of the scan
+  float* dB_s = du_s + D * ld;  // [N] dB, then [N] dC right after it
+  float* dC_s = dB_s + N * ld;
 
   const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
   const Row w = row_of(a, bg % a.G);
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
   load_dy<TI>(a, bg, t0, dy_s);
-  for (int i = threadIdx.x; i < 2 * N * T; i += blockDim.x) dB_s[i] = 0.f;
-  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw, w.dtb,
-                           u_s, dt_s, xd_s);
+  for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
+  mmu::recompute_chunk<TI, 1>(x, D, L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
+                              w.dtb, u_s, dt_s, xd_s);
 
-  const float* Bs = xd_s + R * T;
-  const float* Cs = Bs + N * T;
+  const float* Bs = xd_s + R * ld;
+  const float* Cs = Bs + N * ld;
   const int lane = threadIdx.x & 31;
   const size_t blk = (size_t)bg * a.nC + c;  // this chunk: states and partials
   float hbuf[kMaxT];
@@ -188,19 +188,19 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
     float h = live ? a.state[blk * D * N + pp] : 0.f;
     for (int s = 0; s < T; ++s) {  // rebuild h in scan order
       const int t = a.reverse ? T - 1 - s : s;
-      const float dtv = live ? dt_s[d * T + t] : 0.f;
-      const float uv = live ? u_s[d * T + t] : 0.f;
-      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * T + t];
+      const float dtv = live ? dt_s[d * ld + t] : 0.f;
+      const float uv = live ? u_s[d * ld + t] : 0.f;
+      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
       hbuf[t] = h;
     }
     float carry = (live && a.nC > 1) ? a.gcarry[blk * D * N + pp] : 0.f;
     float dA_acc = 0.f, dD_acc = 0.f;
     for (int s = 0; s < T; ++s) {  // the adjoint, against the scan direction
       const int t = a.reverse ? s : T - 1 - s;
-      const float dtv = live ? dt_s[d * T + t] : 0.f;
-      const float uv = live ? u_s[d * T + t] : 0.f;
-      const float dyv = live ? dy_s[d * T + t] : 0.f;
-      const float Bv = Bs[n * T + t], Cv = Cs[n * T + t];
+      const float dtv = live ? dt_s[d * ld + t] : 0.f;
+      const float uv = live ? u_s[d * ld + t] : 0.f;
+      const float dyv = live ? dy_s[d * ld + t] : 0.f;
+      const float Bv = Bs[n * ld + t], Cv = Cs[n * ld + t];
       const float hv = hbuf[t];
       const float g = dyv * Cv + carry;
       const float gah = g * (hv - dtv * uv * Bv);  // g * a * h_prev
@@ -216,17 +216,17 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
         vC += __shfl_xor_sync(0xffffffffu, vC, off);
       }
       if (lane < N) {  // lane == n for live lanes; a dead lane here adds 0
-        atomicAdd(&dB_s[lane * T + t], vB);
-        atomicAdd(&dC_s[lane * T + t], vC);
+        atomicAdd(&dB_s[lane * ld + t], vB);
+        atomicAdd(&dC_s[lane * ld + t], vC);
       }
       dA_acc += gah * dtv;
       carry = expf(dtv * a_dn) * g;
       // every lane of the group read dt, dy [d][t] before the shuffles
       if (live && n == 0) {
         dD_acc += dyv * uv;
-        du_s[d * T + t] = dtv * gB + dyv * Dd;
-        dt_s[d * T + t] = (pA + uv * gB) * (-expm1f(-dtv));  // sigmoid(dt_raw)
-        dy_s[d * T + t] = yp + Dd * uv;                      // y_pre
+        du_s[d * ld + t] = dtv * gB + dyv * Dd;
+        dt_s[d * ld + t] = (pA + uv * gB) * (-expm1f(-dtv));  // sigmoid(dt_raw)
+        dy_s[d * ld + t] = yp + Dd * uv;                      // y_pre
       }
     }
     if (live) {
@@ -241,12 +241,12 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   TI* dxz = static_cast<TI*>(a.dxz) + (size_t)bg * 2 * D * L;
   // dz = dout * y_pre * silu'(z), coalesced along L
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, gt = t0 + (i - d * T);
+    const int d = i / T, t = i - d * T, gt = t0 + t;
     if (gt < L) {
       const float zv = mmu::to_f32(z[(size_t)d * L + gt]);
       const float sz = 1.f / (1.f + expf(-zv));
       const float dz =
-          mmu::to_f32(dout[(size_t)d * L + gt]) * dy_s[i] * (sz + zv * sz * (1.f - sz));
+          mmu::to_f32(dout[(size_t)d * L + gt]) * dy_s[d * ld + t] * (sz + zv * sz * (1.f - sz));
       dxz[(size_t)(D + d) * L + gt] = mmu::from_f32<TI>(dz);
     }
   }
@@ -255,10 +255,10 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
     const int d = i / (R + 1), r = i - d * (R + 1);
     float acc = 0.f;
     if (r < R) {
-      for (int t = 0; t < T; ++t) acc += mmu::round_to<TI>(dt_s[d * T + t]) * xd_s[r * T + t];
+      for (int t = 0; t < T; ++t) acc += mmu::round_to<TI>(dt_s[d * ld + t]) * xd_s[r * ld + t];
       a.p_ddtw[(blk * D + d) * R + r] = acc;
     } else {
-      for (int t = 0; t < T; ++t) acc += dt_s[d * T + t];
+      for (int t = 0; t < T; ++t) acc += dt_s[d * ld + t];
       a.p_ddtb[blk * D + d] = acc;
     }
   }
@@ -268,17 +268,17 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   for (int i = threadIdx.x; i < R * T; i += blockDim.x) {
     const int r = i / T, t = i - r * T;
     float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += w.dtw[d * R + r] * mmu::round_to<TI>(dt_s[d * T + t]);
-    dxd[i] = mmu::round_to<TI>(acc);
+    for (int d = 0; d < D; ++d) acc += w.dtw[d * R + r] * mmu::round_to<TI>(dt_s[d * ld + t]);
+    dxd[r * ld + t] = mmu::round_to<TI>(acc);
   }
-  for (int i = threadIdx.x; i < 2 * N * T; i += blockDim.x) dB_s[i] = mmu::round_to<TI>(dB_s[i]);
+  for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = mmu::round_to<TI>(dB_s[i]);
   __syncthreads();
   // x_proj partial: dx_dbl @ u^T
   for (int i = threadIdx.x; i < E * D; i += blockDim.x) {
     const int e = i / D, d = i - e * D;
-    const float* row = e < R ? dxd + e * T : dB_s + (e - R) * T;
+    const float* row = e < R ? dxd + e * ld : dB_s + (e - R) * ld;
     float acc = 0.f;
-    for (int t = 0; t < T; ++t) acc += row[t] * u_s[d * T + t];
+    for (int t = 0; t < T; ++t) acc += row[t] * u_s[d * ld + t];
     a.p_dxp[(blk * E + e) * D + d] = acc;
   }
   // dpre = (x_proj^T dx_dbl + du) * silu'(pre), in token order
@@ -286,9 +286,9 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
     const int d = i / T, t = i - d * T, gt = t0 + t;
     if (gt >= L) continue;
-    float acc = du_s[i];
+    float acc = du_s[d * ld + t];
     for (int e = 0; e < E; ++e) {
-      const float* row = e < R ? dxd + e * T : dB_s + (e - R) * T;
+      const float* row = e < R ? dxd + e * ld : dB_s + (e - R) * ld;
       acc += w.xp[(size_t)e * D + d] * row[t];
     }
     const float pre = mmu::conv_pre(x + (size_t)d * L, w.cw + d * W, w.cb[d], gt, L, W, a.reverse);
@@ -407,8 +407,8 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
   const int pairs = D * N;
   const int threads = pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
   const int E = R + 2 * N;
-  const size_t smem_local = (size_t)(3 * D + E) * T * sizeof(float);
-  const size_t smem_chunk = (size_t)(4 * D + E + 2 * N) * T * sizeof(float);
+  const size_t smem_local = (size_t)(3 * D + E) * (T + 1) * sizeof(float);
+  const size_t smem_chunk = (size_t)(4 * D + E + 2 * N) * (T + 1) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem_local, smem_chunk, st)
                  : launch<float>(a, threads, smem_local, smem_chunk, st);
