@@ -45,8 +45,8 @@
 
 namespace {
 
-constexpr int kMaxT = 256;       // longest chunk the wrapper picks: the h buffer
-constexpr int kMaxW = 8;         // widest conv
+constexpr int kS = 16;    // tokens per sub-chunk of pass C, whose states live in registers
+constexpr int kMaxW = 8;  // widest conv
 
 struct BwdArgs {
   const void* xz;       // (B, G, 2D, L) stream dtype
@@ -162,6 +162,7 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   float* du_s = dy_s + D * ld;  // [D] du of the scan
   float* dB_s = du_s + D * ld;  // [N] dB, then [N] dC right after it
   float* dC_s = dB_s + N * ld;
+  float* ck_s = dC_s + N * ld;  // [T / kS][blockDim] sub-chunk entry states
 
   const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
   const Row w = row_of(a, bg % a.G);
@@ -173,60 +174,78 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
 
   const float* Bs = xd_s + R * ld;
   const float* Cs = Bs + N * ld;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, nsub = T / kS;
   const size_t blk = (size_t)bg * a.nC + c;  // this chunk: states and partials
-  float hbuf[kMaxT];
-  // every lane of a warp runs both walks (lanes past D * N with zero
+  // every lane of a warp runs every walk (lanes past D * N with zero
   // inputs), so the shuffles below always see the full warp
   for (int p0 = 0; p0 < D * N; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
     const bool live = p < D * N;
     const int pp = live ? p : 0;
     const int d = pp / N, n = pp - d * N;
+    const float* dt_d = dt_s + d * ld;
+    const float* u_d = u_s + d * ld;
     const float a_dn = w.A[pp];
     const float Dd = w.Dv[d];
+    // walk 1, in scan order: the state entering each sub-chunk, into this
+    // thread's column of ck_s
     float h = live ? a.state[blk * D * N + pp] : 0.f;
-    for (int s = 0; s < T; ++s) {  // rebuild h in scan order
-      const int t = a.reverse ? T - 1 - s : s;
-      const float dtv = live ? dt_s[d * ld + t] : 0.f;
-      const float uv = live ? u_s[d * ld + t] : 0.f;
-      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
-      hbuf[t] = h;
+    for (int k = 0; k < nsub; ++k) {
+      ck_s[k * blockDim.x + threadIdx.x] = h;
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
+        h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
+      }
     }
     float carry = (live && a.nC > 1) ? a.gcarry[blk * D * N + pp] : 0.f;
     float dA_acc = 0.f, dD_acc = 0.f;
-    for (int s = 0; s < T; ++s) {  // the adjoint, against the scan direction
-      const int t = a.reverse ? s : T - 1 - s;
-      const float dtv = live ? dt_s[d * ld + t] : 0.f;
-      const float uv = live ? u_s[d * ld + t] : 0.f;
-      const float dyv = live ? dy_s[d * ld + t] : 0.f;
-      const float Bv = Bs[n * ld + t], Cv = Cs[n * ld + t];
-      const float hv = hbuf[t];
-      const float g = dyv * Cv + carry;
-      const float gah = g * (hv - dtv * uv * Bv);  // g * a * h_prev
-      float gB = g * Bv, pA = gah * a_dn, yp = hv * Cv;
-      for (int off = N / 2; off > 0; off >>= 1) {  // sums over n
-        gB += __shfl_xor_sync(0xffffffffu, gB, off);
-        pA += __shfl_xor_sync(0xffffffffu, pA, off);
-        yp += __shfl_xor_sync(0xffffffffu, yp, off);
+    for (int k = nsub - 1; k >= 0; --k) {  // sub-chunks against the scan direction
+      // rebuild the sub-chunk's states and decays into registers
+      float hr[kS], ar[kS];
+      h = ck_s[k * blockDim.x + threadIdx.x];
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
+        ar[j] = expf(dtv * a_dn);
+        h = ar[j] * h + dtv * uv * Bs[n * ld + t];
+        hr[j] = h;
       }
-      float vB = g * dtv * uv, vC = hv * dyv;
-      for (int off = N; off < 32; off <<= 1) {  // sums over the warp's channels
-        vB += __shfl_xor_sync(0xffffffffu, vB, off);
-        vC += __shfl_xor_sync(0xffffffffu, vC, off);
-      }
-      if (lane < N) {  // lane == n for live lanes; a dead lane here adds 0
-        atomicAdd(&dB_s[lane * ld + t], vB);
-        atomicAdd(&dC_s[lane * ld + t], vC);
-      }
-      dA_acc += gah * dtv;
-      carry = expf(dtv * a_dn) * g;
-      // every lane of the group read dt, dy [d][t] before the shuffles
-      if (live && n == 0) {
-        dD_acc += dyv * uv;
-        du_s[d * ld + t] = dtv * gB + dyv * Dd;
-        dt_s[d * ld + t] = (pA + uv * gB) * (-expm1f(-dtv));  // sigmoid(dt_raw)
-        dy_s[d * ld + t] = yp + Dd * uv;                      // y_pre
+#pragma unroll
+      for (int j = kS - 1; j >= 0; --j) {  // the adjoint
+        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
+        const float dyv = live ? dy_s[d * ld + t] : 0.f;
+        const float Bv = Bs[n * ld + t], Cv = Cs[n * ld + t];
+        const float hv = hr[j];
+        const float g = dyv * Cv + carry;
+        const float gah = g * (hv - dtv * uv * Bv);  // g * a * h_prev
+        float gB = g * Bv, pA = gah * a_dn, yp = hv * Cv;
+        for (int off = N / 2; off > 0; off >>= 1) {  // sums over n
+          gB += __shfl_xor_sync(0xffffffffu, gB, off);
+          pA += __shfl_xor_sync(0xffffffffu, pA, off);
+          yp += __shfl_xor_sync(0xffffffffu, yp, off);
+        }
+        float vB = g * dtv * uv, vC = hv * dyv;
+        for (int off = N; off < 32; off <<= 1) {  // sums over the warp's channels
+          vB += __shfl_xor_sync(0xffffffffu, vB, off);
+          vC += __shfl_xor_sync(0xffffffffu, vC, off);
+        }
+        if (lane < N) {  // lane == n for live lanes; a dead lane here adds 0
+          atomicAdd(&dB_s[lane * ld + t], vB);
+          atomicAdd(&dC_s[lane * ld + t], vC);
+        }
+        dA_acc += gah * dtv;
+        carry = ar[j] * g;
+        // every lane of the group read dt, dy [d][t] before the shuffles
+        if (live && n == 0) {
+          dD_acc += dyv * uv;
+          du_s[d * ld + t] = dtv * gB + dyv * Dd;
+          dt_s[d * ld + t] = (pA + uv * gB) * (-expm1f(-dtv));  // sigmoid(dt_raw)
+          dy_s[d * ld + t] = yp + Dd * uv;                      // y_pre
+        }
       }
     }
     if (live) {
@@ -375,7 +394,7 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
                                void* p_dxp, void* p_ddtw, void* p_ddtb, void* p_dA, void* p_dD,
                                void* p_dconv, int B, int G, int D, int L, int N, int R, int W,
                                int T, int conv_tile, int reverse, int is_bf16, void* stream) {
-  if (T > kMaxT || W > kMaxW || N > 32 || (N & (N - 1)) || R > D || conv_tile < 1)
+  if (T % kS || W > kMaxW || N > 32 || (N & (N - 1)) || R > D || conv_tile < 1)
     return cudaErrorInvalidValue;
   BwdArgs a;
   a.xz = xz;
@@ -408,7 +427,8 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
   const int threads = pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
   const int E = R + 2 * N;
   const size_t smem_local = (size_t)(3 * D + E) * (T + 1) * sizeof(float);
-  const size_t smem_chunk = (size_t)(4 * D + E + 2 * N) * (T + 1) * sizeof(float);
+  const size_t smem_chunk =
+      ((size_t)(4 * D + E + 2 * N) * (T + 1) + (size_t)(T / kS) * threads) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem_local, smem_chunk, st)
                  : launch<float>(a, threads, smem_local, smem_chunk, st);

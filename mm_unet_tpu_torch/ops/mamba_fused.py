@@ -27,6 +27,9 @@ from mm_unet_tpu_torch.ops.selective_scan import selective_scan_ref
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _CONV_TILE = 1024  # tokens per block of the backward's depthwise conv pass
+# tokens per sub-chunk of the backward's pass C (`kS` in csrc/mamba_fused_bwd.cu):
+# a chunk must hold whole sub-chunks
+_SUB_CHUNK = 16
 
 
 def mamba_fused_scan_ref(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip,
@@ -58,7 +61,7 @@ def _chunk_len(D: int, E: int) -> int:
     """Tokens per block: the largest power of two in [16, 256] whose f32
     shared-memory tile (u and dt for D channels, E x_dbl rows) fits 96 KB
     for wide Mambas (two blocks per SM) or 24 KB for narrow ones (many small
-    blocks per SM, to hide the scan's latency)."""
+    blocks per SM, to hide the scan's latency); a multiple of `_SUB_CHUNK`."""
     budget = (96 if D > 32 else 24) * 1024
     t = 256
     while t > 16 and (2 * D + E) * t * 4 > budget:

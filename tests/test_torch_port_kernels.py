@@ -172,3 +172,21 @@ def test_wrappers_raise_off_cpu_and_cuda():
     args = [torch.from_numpy(a).to("meta") for a in _mamba_inputs(4, 8, 1, 4, True)]
     with pytest.raises(ValueError, match="no kernel"):
         mamba_fused_scan(*args)
+
+
+@pytest.mark.parametrize("name", ["MM_Net", "dkDualNet"])
+def test_chunk_lengths_split_into_backward_sub_chunks(name):
+    """Every megakernel Mamba of the model gets a chunk of whole sub-chunks
+    of the backward's pass C (which rebuilds the states of `_SUB_CHUNK`
+    tokens at a time in registers), within the kernels' range."""
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.models.mamba import Mamba
+    from mm_unet_tpu_torch.ops.mamba_fused import _SUB_CHUNK, _chunk_len
+
+    model = give_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
+    dims = {(m.d_inner, m.dt_rank + 2 * m.d_state) for m in model.modules()
+            if isinstance(m, Mamba) and m.use_mega}
+    assert dims, "no megakernel Mamba"
+    for D, E in sorted(dims):
+        T = _chunk_len(D, E)
+        assert 16 <= T <= 256 and T % _SUB_CHUNK == 0, (D, E, T)
