@@ -149,11 +149,39 @@ __global__ void mamba_bwd_combine_kernel(BwdArgs a) {
   }
 }
 
+// Sums, over the N lanes of each state group, one value per token of a
+// sub-chunk, v[j] for token j < kS, and scatters the sums: at each level a
+// lane keeps the half of its tokens that its lane bit selects and adds its
+// partner's copy of that half, so the group spends kS - 1 shuffles where a
+// sum per token would spend kS log2(N). After it, lane n's v[i], i < kS / Ne,
+// holds the group's sum for token (n % N) / (N / Ne) * (kS / Ne) + i, where
+// Ne = min(N, kS) (for N = 32 lanes n and n ^ 1 hold the same sums).
+template <int N>
+__device__ __forceinline__ void group_sum_scatter(float (&v)[kS], int lane) {
+  int cnt = kS;
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1) {
+    if (cnt > 1) {
+      const bool hi = lane & off;
+      cnt /= 2;
+#pragma unroll
+      for (int i = 0; i < kS / 2; ++i) {
+        if (i < cnt) {
+          const float send = hi ? v[i] : v[i + cnt];
+          v[i] = (hi ? v[i + cnt] : v[i]) + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+}
+
 // Pass C: the full adjoint of one chunk and every term but the conv's.
-template <typename TI>
+template <typename TI, int N>
 __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, N = a.N, R = a.R, L = a.L;
+  const int D = a.D, T = a.T, R = a.R, L = a.L;
   const int E = R + 2 * N, ld = T + 1;  // rows of T + 1 floats
   float* u_s = smem;            // [D] rows: conv output
   float* dt_s = u_s + D * ld;   // [D] dt, overwritten by ddt_raw
@@ -175,6 +203,8 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   const float* Bs = xd_s + R * ld;
   const float* Cs = Bs + N * ld;
   const int lane = threadIdx.x & 31, nsub = T / kS;
+  constexpr int kNe = N < kS ? N : kS;  // lanes of a group that end with distinct sums
+  constexpr int kRep = N / kNe;         // lanes that hold each of them
   const size_t blk = (size_t)bg * a.nC + c;  // this chunk: states and partials
   // every lane of a warp runs every walk (lanes past D * N with zero
   // inputs), so the shuffles below always see the full warp
@@ -203,7 +233,7 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
     float dA_acc = 0.f, dD_acc = 0.f;
     for (int k = nsub - 1; k >= 0; --k) {  // sub-chunks against the scan direction
       // rebuild the sub-chunk's states and decays into registers
-      float hr[kS], ar[kS];
+      float hr[kS], ar[kS], pa[kS];
       h = ck_s[k * blockDim.x + threadIdx.x];
 #pragma unroll
       for (int j = 0; j < kS; ++j) {
@@ -213,22 +243,17 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
         h = ar[j] * h + dtv * uv * Bs[n * ld + t];
         hr[j] = h;
       }
+      // the adjoint: g and this lane's terms per token; the sums over the
+      // warp's channels at once, the sums over the states after the walk
 #pragma unroll
-      for (int j = kS - 1; j >= 0; --j) {  // the adjoint
+      for (int j = kS - 1; j >= 0; --j) {
         const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
         const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
         const float dyv = live ? dy_s[d * ld + t] : 0.f;
         const float Bv = Bs[n * ld + t], Cv = Cs[n * ld + t];
-        const float hv = hr[j];
         const float g = dyv * Cv + carry;
-        const float gah = g * (hv - dtv * uv * Bv);  // g * a * h_prev
-        float gB = g * Bv, pA = gah * a_dn, yp = hv * Cv;
-        for (int off = N / 2; off > 0; off >>= 1) {  // sums over n
-          gB += __shfl_xor_sync(0xffffffffu, gB, off);
-          pA += __shfl_xor_sync(0xffffffffu, pA, off);
-          yp += __shfl_xor_sync(0xffffffffu, yp, off);
-        }
-        float vB = g * dtv * uv, vC = hv * dyv;
+        const float gah = g * (hr[j] - dtv * uv * Bv);  // g * a * h_prev
+        float vB = g * dtv * uv, vC = hr[j] * dyv;
         for (int off = N; off < 32; off <<= 1) {  // sums over the warp's channels
           vB += __shfl_xor_sync(0xffffffffu, vB, off);
           vC += __shfl_xor_sync(0xffffffffu, vC, off);
@@ -239,15 +264,28 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
         }
         dA_acc += gah * dtv;
         carry = ar[j] * g;
-        // every lane of the group read dt, dy [d][t] before the shuffles
-        if (live && n == 0) {
+        ar[j] = g * Bv;       // now the terms of sum_n g B,
+        pa[j] = gah * a_dn;   // sum_n g a h_prev A
+        hr[j] = hr[j] * Cv;   // and sum_n h C
+      }
+      // every lane of the group has read dt, u, dy of the sub-chunk's
+      // tokens: the sums' owners overwrite them
+      group_sum_scatter<N>(ar, lane);
+      group_sum_scatter<N>(pa, lane);
+      group_sum_scatter<N>(hr, lane);
+      if (live && n % kRep == 0) {
+#pragma unroll
+        for (int i = 0; i < kS / kNe; ++i) {
+          const int s = k * kS + n / kRep * (kS / kNe) + i, t = a.reverse ? T - 1 - s : s;
+          const float dtv = dt_d[t], uv = u_d[t], dyv = dy_s[d * ld + t];
           dD_acc += dyv * uv;
-          du_s[d * ld + t] = dtv * gB + dyv * Dd;
-          dt_s[d * ld + t] = (pA + uv * gB) * (-expm1f(-dtv));  // sigmoid(dt_raw)
-          dy_s[d * ld + t] = yp + Dd * uv;                      // y_pre
+          du_s[d * ld + t] = dtv * ar[i] + dyv * Dd;
+          dt_s[d * ld + t] = (pa[i] + uv * ar[i]) * (-expm1f(-dtv));  // sigmoid(dt_raw)
+          dy_s[d * ld + t] = hr[i] + Dd * uv;                          // y_pre
         }
       }
     }
+    for (int off = N / 2; off > 0; off >>= 1) dD_acc += __shfl_xor_sync(0xffffffffu, dD_acc, off);
     if (live) {
       a.p_dA[blk * D * N + p] = dA_acc;
       if (n == 0) a.p_dD[blk * D + d] = dD_acc;
@@ -364,6 +402,16 @@ __global__ void __launch_bounds__(256) mamba_bwd_conv_kernel(BwdArgs a) {
   }
 }
 
+// pass C for the state count N, a compile-time constant of its sums
+template <typename TI, int N>
+cudaError_t launch_chunk(const BwdArgs& a, dim3 grid, int threads, size_t smem,
+                         cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      mamba_bwd_chunk_kernel<TI, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) mamba_bwd_chunk_kernel<TI, N><<<grid, threads, smem, stream>>>(a);
+  return err;
+}
+
 template <typename TI>
 int launch(const BwdArgs& a, int threads, size_t smem_local, size_t smem_chunk,
            cudaStream_t stream) {
@@ -377,10 +425,15 @@ int launch(const BwdArgs& a, int threads, size_t smem_local, size_t smem_chunk,
     const int64_t chains = (int64_t)a.B * a.G * a.D * a.N;
     mamba_bwd_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
   }
-  err = cudaFuncSetAttribute(mamba_bwd_chunk_kernel<TI>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_chunk);
+  switch (a.N) {
+    case 1: err = launch_chunk<TI, 1>(a, grid, threads, smem_chunk, stream); break;
+    case 2: err = launch_chunk<TI, 2>(a, grid, threads, smem_chunk, stream); break;
+    case 4: err = launch_chunk<TI, 4>(a, grid, threads, smem_chunk, stream); break;
+    case 8: err = launch_chunk<TI, 8>(a, grid, threads, smem_chunk, stream); break;
+    case 16: err = launch_chunk<TI, 16>(a, grid, threads, smem_chunk, stream); break;
+    default: err = launch_chunk<TI, 32>(a, grid, threads, smem_chunk, stream); break;
+  }
   if (err != cudaSuccess) return err;
-  mamba_bwd_chunk_kernel<TI><<<grid, threads, smem_chunk, stream>>>(a);
   mamba_bwd_conv_kernel<TI><<<dim3(a.nCT, a.D, a.B * a.G), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
