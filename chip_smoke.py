@@ -439,17 +439,20 @@ def mamba_step_shapes(model) -> tuple[dict, list]:
 
 
 def kernel_device_ms(fn, fragment: str, reps: int = 3) -> float:
-    """Mean device time per call of fn() (already warm) spent in the kernels
-    whose names contain `fragment`, by torch.profiler: without the host's
-    share, which decides `cuda_ms` at small shapes."""
+    """Device time of one call of fn() (already warm) spent in the kernels
+    whose names contain `fragment`, each launched once per call, by
+    torch.profiler over `reps` calls: without the host's share, which
+    decides `cuda_ms` at small shapes. Each kernel's time is its mean over
+    the launches the profiler recorded, which need not be all of them."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and fragment in e.key) / 1e3 / reps
+    return sum(e.self_device_time_total / e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and fragment in e.key) / 1e3
 
 
 def phase1_step_shapes(shapes: dict, seed: int) -> list:

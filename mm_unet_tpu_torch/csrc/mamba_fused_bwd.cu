@@ -15,29 +15,57 @@
 // Under bf16, ddt_raw and dx_dbl are rounded before their products and dxz
 // is written in the stream dtype, where the TPU kernel rounds.
 //
-// What bounds it on the H100: as the forward, the chain of dependent
-// exp/multiply-adds per (b, channel, state) along L, run twice (rebuild h,
-// then the adjoint walk), and for MM_Net's narrow MMConv scans (D = 6 or 2)
-// too few chains to fill the card if each walked all of L. The TPU carries
-// g, the edge decay and the neighbour chunk's dpre across a sequential grid
-// axis; Hopper blocks run in no order, so the design mirrors the forward's
-// three passes, one block per (batch, chunk of T tokens):
+// The TPU carries g, the edge decay and the neighbour chunk's dpre across a
+// sequential grid axis; Hopper blocks run in no order, so the design
+// mirrors the forward's three passes, one block per (batch, chunk of T
+// tokens):
 //   A. each block recomputes conv, x_proj and dt into shared memory and runs
 //      the adjoint across its chunk from a zero carry, emitting the boundary
 //      adjoint a_edge * g_edge per (d, n);
 //   B. a small kernel walks the chunks against the scan direction per
 //      (b, d, n), turning the local boundary adjoints into true carries
 //      (a chunk's decay is exp(A * sum dt), the forward's saved sum);
-//   C. each block rebuilds h across its chunk from the saved entry state
-//      into a per-thread buffer, walks back with g from the true carry, and
-//      accumulates every per-token and per-parameter term: sums over the N
-//      states by shuffles inside an N-lane group, sums over channels by
-//      shared-memory atomics; then the projection products, dz, and dpre
-//      into an f32 (B, G, D, L) scratch;
+//   C. each block rebuilds h from the saved entry state, walks back with g
+//      from the true carry and accumulates every per-token and
+//      per-parameter term; then the projection products, dz, and dpre into
+//      an f32 (B, G, D, L) scratch;
 //   D. a depthwise kernel turns dpre into dx (including the W-1 tokens that
 //      cross each chunk edge) and the conv weight and bias gradients.
 // Parameter gradients are per-block partials in f32, summed by the wrapper
-// (as core_bwd sums over batch on the host).
+// (as core_bwd sums over batch on the host): no global atomics, so every
+// gradient is the same from run to run.
+//
+// What bounds it on the H100: not device memory (at D = 128 the bytes it
+// must move take about 2% of its time) but the shared-memory and shuffle traffic of pass C, issued
+// through the SM's one memory pipe, and the latency of its dependent
+// chains. One thread walks one (channel d, state n) chain; per token it
+// reads dt, u, dy, B and C and its terms must be summed over the N states
+// and over the channels. The design cuts that traffic three ways:
+//   - rows of T + 1 floats: every per-chunk row in shared memory has an odd
+//     length, so the N state lanes of a channel that read B or C, or add to
+//     dB or dC, at one token hit N distinct banks (rows of T floats put
+//     them in one bank: N-way conflicts on every token), as do neighbouring
+//     channels reading their rows at one token and the small products
+//     reading u across channels;
+//   - h in registers: pass C walks its chunk in sub-chunks of kS tokens. A
+//     first walk keeps the state entering each sub-chunk in shared memory,
+//     one column per thread; each sub-chunk's states and decays are rebuilt
+//     into unrolled register arrays just before its adjoint walk. One more
+//     forward walk buys a per-thread chunk buffer out of local memory (no
+//     stack frame);
+//   - sums over the states by a scattering butterfly: during a sub-chunk's
+//     adjoint each lane keeps its terms of sum_n g B, sum_n g a h_prev A and
+//     sum_n h C per token; a halving butterfly then sums them over the state
+//     group and leaves each lane the sums of its own tokens (kS - 1 shuffles
+//     per quantity where a sum per token takes kS log2 N), and those lanes
+//     write du, ddt and y_pre for kS tokens at once. The sums over the
+//     warp's channels stay per token (one shuffle level at N = 16), then one
+//     shared-memory atomic per (n, t) and warp.
+// The small products (x_dbl = x_proj u, its transpose into dpre, and the
+// x_proj gradient) take kTile rows or tokens per thread, so a value read
+// from shared memory feeds several products. At MM_Net's widest scan (D =
+// 128, R = 4, N = 16, T = 64) pass C holds one 512-thread block per SM: 160
+// KB of shared memory and 128 registers a thread, both at the SM's limit.
 #include <cstdint>
 
 #include "common.cuh"
@@ -46,6 +74,7 @@
 namespace {
 
 constexpr int kS = 16;    // tokens per sub-chunk of pass C, whose states live in registers
+constexpr int kTile = 4;  // rows (or tokens) per thread in pass C's small products
 constexpr int kMaxW = 8;  // widest conv
 
 struct BwdArgs {
@@ -186,9 +215,10 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   float* u_s = smem;            // [D] rows: conv output
   float* dt_s = u_s + D * ld;   // [D] dt, overwritten by ddt_raw
   float* xd_s = dt_s + D * ld;  // [E] x_dbl
-  float* dy_s = xd_s + E * ld;  // [D] dy, overwritten by y_pre, then dx_dbl's dt rows
+  float* dy_s = xd_s + E * ld;  // [D] dy, overwritten by y_pre
   float* du_s = dy_s + D * ld;  // [D] du of the scan
-  float* dB_s = du_s + D * ld;  // [N] dB, then [N] dC right after it
+  float* xg_s = du_s + D * ld;  // [E] dx_dbl: R dt rows, then dB and dC
+  float* dB_s = xg_s + R * ld;
   float* dC_s = dB_s + N * ld;
   float* ck_s = dC_s + N * ld;  // [T / kS][blockDim] sub-chunk entry states
 
@@ -319,38 +349,61 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
       a.p_ddtb[blk * D + d] = acc;
     }
   }
-  __syncthreads();  // y_pre is read; its rows take dx_dbl's dt rows
   // dx_dbl = [dt_w^T ddt_raw; dB; dC], rounded to the stream dtype
-  float* dxd = dy_s;  // rows [0, R) here, rows [R, E) are dB_s, dC_s
   for (int i = threadIdx.x; i < R * T; i += blockDim.x) {
     const int r = i / T, t = i - r * T;
     float acc = 0.f;
     for (int d = 0; d < D; ++d) acc += w.dtw[d * R + r] * mmu::round_to<TI>(dt_s[d * ld + t]);
-    dxd[r * ld + t] = mmu::round_to<TI>(acc);
+    xg_s[r * ld + t] = mmu::round_to<TI>(acc);
   }
   for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = mmu::round_to<TI>(dB_s[i]);
   __syncthreads();
-  // x_proj partial: dx_dbl @ u^T
-  for (int i = threadIdx.x; i < E * D; i += blockDim.x) {
-    const int e = i / D, d = i - e * D;
-    const float* row = e < R ? dxd + e * ld : dB_s + (e - R) * ld;
-    float acc = 0.f;
-    for (int t = 0; t < T; ++t) acc += row[t] * u_s[d * ld + t];
-    a.p_dxp[(blk * E + e) * D + d] = acc;
-  }
-  // dpre = (x_proj^T dx_dbl + du) * silu'(pre), in token order
-  const int W = a.W;
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T, gt = t0 + t;
-    if (gt >= L) continue;
-    float acc = du_s[d * ld + t];
-    for (int e = 0; e < E; ++e) {
-      const float* row = e < R ? dxd + e * ld : dB_s + (e - R) * ld;
-      acc += w.xp[(size_t)e * D + d] * row[t];
+  // x_proj partial: dx_dbl @ u^T. A thread takes kTile rows of dx_dbl and
+  // the channels d and d + Dh, so each value it reads feeds several
+  // products (a clamped row or channel past the edge is read, not written)
+  const int Dh = (D + 1) / 2;
+  for (int i = threadIdx.x; i < Dh * ((E + kTile - 1) / kTile); i += blockDim.x) {
+    const int d0 = i % Dh, e0 = i / Dh * kTile, d1 = min(d0 + Dh, D - 1);
+    float acc0[kTile] = {}, acc1[kTile] = {};
+    for (int t = 0; t < T; ++t) {
+      const float u0 = u_s[d0 * ld + t], u1 = u_s[d1 * ld + t];
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) {
+        const float xv = xg_s[min(e0 + j, E - 1) * ld + t];
+        acc0[j] += xv * u0;
+        acc1[j] += xv * u1;
+      }
     }
-    const float pre = mmu::conv_pre(x + (size_t)d * L, w.cw + d * W, w.cb[d], gt, L, W, a.reverse);
-    const float sp = 1.f / (1.f + expf(-pre));
-    a.dpre[((size_t)bg * D + d) * L + gt] = acc * sp * (1.f + pre * (1.f - sp));
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      if (e0 + j >= E) break;
+      float* out = a.p_dxp + (blk * E + e0 + j) * D;
+      out[d0] = acc0[j];
+      if (d0 + Dh < D) out[d0 + Dh] = acc1[j];
+    }
+  }
+  // dpre = (x_proj^T dx_dbl + du) * silu'(pre), in token order; a thread
+  // takes kTile tokens T / kTile apart of one channel, each weight read once
+  const int W = a.W, Tq = T / kTile;
+  for (int i = threadIdx.x; i < D * Tq; i += blockDim.x) {
+    const int d = i / Tq, tq = i - d * Tq;
+    float acc[kTile];
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[j] = du_s[d * ld + tq + j * Tq];
+    for (int e = 0; e < E; ++e) {
+      const float wv = w.xp[(size_t)e * D + d];
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) acc[j] += wv * xg_s[e * ld + tq + j * Tq];
+    }
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      const int gt = t0 + tq + j * Tq;
+      if (gt >= L) break;
+      const float pre =
+          mmu::conv_pre(x + (size_t)d * L, w.cw + d * W, w.cb[d], gt, L, W, a.reverse);
+      const float sp = 1.f / (1.f + expf(-pre));
+      a.dpre[((size_t)bg * D + d) * L + gt] = acc[j] * sp * (1.f + pre * (1.f - sp));
+    }
   }
 }
 
@@ -481,7 +534,7 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
   const int E = R + 2 * N;
   const size_t smem_local = (size_t)(3 * D + E) * (T + 1) * sizeof(float);
   const size_t smem_chunk =
-      ((size_t)(4 * D + E + 2 * N) * (T + 1) + (size_t)(T / kS) * threads) * sizeof(float);
+      ((size_t)(4 * D + 2 * E) * (T + 1) + (size_t)(T / kS) * threads) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem_local, smem_chunk, st)
                  : launch<float>(a, threads, smem_local, smem_chunk, st);
