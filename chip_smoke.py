@@ -698,7 +698,7 @@ def phase3_serving(seed: int, profile: bool = False) -> dict:
     return launches
 
 
-def phase4_training(seed: int, profile: bool = False) -> dict:
+def phase4_training(seed: int, profile: bool = False) -> tuple[dict, dict]:
     """Train steps of the full-width bf16 MM_Net at 512² batch 8. Returns
     each kernel's launches over the run (forward and backward) and the
     fused scans' shapes in one step (`mamba_step_shapes`)."""

@@ -159,8 +159,11 @@ __global__ void mamba_bwd_local_kernel(BwdArgs a) {
 }
 
 // Pass B: local boundary adjoints -> the true adjoint entering each chunk
-// from its successor in scan order.
-__global__ void mamba_bwd_combine_kernel(BwdArgs a) {
+// from its successor in scan order. The walk is one dependent chain per
+// (b, d, n) with a load per chunk: the loads of kAhead chunks are issued
+// together, so a chain waits on memory once per kAhead chunks.
+constexpr int kAhead = 8;
+__global__ void __launch_bounds__(128) mamba_bwd_combine_kernel(BwdArgs a) {
   const int D = a.D, N = a.N, nC = a.nC;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)a.B * a.G * D * N) return;
@@ -168,13 +171,23 @@ __global__ void mamba_bwd_combine_kernel(BwdArgs a) {
   const int64_t bg = i / ((int64_t)D * N);
   const float a_dn = a.A[((size_t)(bg % a.G) * D + d) * N + n];
   float carry = 0.f;
-  for (int s = 0; s < nC; ++s) {
-    const int c = a.reverse ? s : nC - 1 - s;
-    const size_t sc = (size_t)bg * nC + c;
-    const size_t k = (sc * D + d) * N + n;
-    const float local = a.gcarry[k];
-    a.gcarry[k] = carry;
-    carry = local + expf(a_dn * a.dtsum[sc * D + d]) * carry;
+  for (int s0 = 0; s0 < nC; s0 += kAhead) {
+    float local[kAhead], dts[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int s = s0 + j, c = a.reverse ? s : nC - 1 - s;
+      const size_t sc = (size_t)bg * nC + c;
+      local[j] = s < nC ? a.gcarry[(sc * D + d) * N + n] : 0.f;
+      dts[j] = s < nC ? a.dtsum[sc * D + d] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int s = s0 + j, c = a.reverse ? s : nC - 1 - s;
+      if (s < nC) {
+        a.gcarry[(((size_t)bg * nC + c) * D + d) * N + n] = carry;
+        carry = local[j] + expf(a_dn * dts[j]) * carry;
+      }
+    }
   }
 }
 
@@ -476,7 +489,7 @@ int launch(const BwdArgs& a, int threads, size_t smem_local, size_t smem_chunk,
     if (err != cudaSuccess) return err;
     mamba_bwd_local_kernel<TI><<<grid, threads, smem_local, stream>>>(a);
     const int64_t chains = (int64_t)a.B * a.G * a.D * a.N;
-    mamba_bwd_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
+    mamba_bwd_combine_kernel<<<(unsigned)((chains + 127) / 128), 128, 0, stream>>>(a);
   }
   switch (a.N) {
     case 1: err = launch_chunk<TI, 1>(a, grid, threads, smem_chunk, stream); break;
