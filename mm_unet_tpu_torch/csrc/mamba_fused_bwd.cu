@@ -122,9 +122,9 @@ __device__ void load_dy(const BwdArgs& a, int bg, int t0, float* dy_s) {
   const TI* dout = static_cast<const TI*>(a.dout) + (size_t)bg * D * L;
   for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
     const int d = i / T, t = i - d * T, gt = t0 + t;
-    dy_s[d * (T + 1) + t] = gt < L ? mmu::to_f32(dout[(size_t)d * L + gt]) *
-                           mmu::silu(mmu::to_f32(z[(size_t)d * L + gt]))
-                     : 0.f;
+    dy_s[d * (T + 1) + t] =
+        gt < L ? mmu::to_f32(dout[(size_t)d * L + gt]) * mmu::silu(mmu::to_f32(z[(size_t)d * L + gt]))
+               : 0.f;
   }
 }
 
