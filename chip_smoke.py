@@ -31,9 +31,10 @@ any failure ends the run non-zero):
    first, and each kernel's forward and backward launches per step against
    the modules' counts (and one step with remat on); times train images/s
    and reads the peak device memory; then, as part of phase 1, times the
-   fused Mamba backward alone at every shape one of those steps gave it
-   (read by forward hooks on the Mambas), with its bound and its launches
-   per step (`phase1 mamba_fused_scan_bwd_step` lines);
+   fused Mamba forward and backward alone at every shape one of those
+   steps gave them (read by forward hooks on the Mambas), with their bounds
+   and launches per step (`phase1 mamba_fused_scan_fwd_step` and
+   `phase1 mamba_fused_scan_bwd_step` lines);
 5. dkDualNet at full width, f32, the same weights on both of its Mambas'
    routes (a: the fused-scan megakernels; b: the grouped selective scan):
    eval logits at 8x3x512² and every parameter gradient of one train-mode
@@ -44,7 +45,11 @@ any failure ends the run non-zero):
    (two batches of 8), images/s for the f32 and bf16 predictor, six
    `train_step`s at 512² batch 8 (finite, falling losses, train images/s,
    peak memory), each with exact launch counts; then three-step blocks on
-   routes a, a and b for the two routes' train rates on one card.
+   routes a, a and b for the two routes' train rates on one card;
+7. MM_Net's two Mamba routes on the card, f32, full-width channels at
+   depths (1,1,1,1), 2x3x512²: the megakernels (kernels 1/2) against the
+   grouped selective scan (kernels 5/6), eval logits and every parameter
+   gradient of one train-mode pass, each relative to its own tensor.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
@@ -97,6 +102,15 @@ GRAD_TOL = 1e-2
 # plain model on the CPU (6.2e-5; other convolution libraries)
 ROUTE_TOL = 5e-5
 DK_CPU_TOL = 3e-4
+# MM_Net, f32, route a (kernels 1/2) vs route b (kernels 5/6) on the card,
+# where both run the same torch ops and only the Mambas' summation order
+# differs: the logits per element as `rel_err` (largest sound reading
+# 3.8e-5), and every parameter gradient relative to the largest |want| of
+# its own tensor (largest sound reading 1.3e-2, rcg3.mlp.0.bias, whose
+# gradient is 4e-7 of the model's largest: route a against itself, whose
+# cuDNN and tap-conv backward sum in a varying order, read 5.5e-3 there)
+MM_ROUTE_LOGITS_TOL = 2e-4
+MM_ROUTE_TOL = 5e-2
 TRAIN_STEPS = 6
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s, and f32 operations/s outside the tensor cores (every
@@ -297,16 +311,26 @@ def grad_errs(got: dict, want: dict) -> tuple[int, list]:
 
 
 def bn_fed_biases(model: torch.nn.Module) -> set:
-    """Names of the conv biases that feed a BatchNorm directly (within an
-    nn.Sequential): in train mode the norm subtracts the batch mean, so
-    their gradient is zero in exact arithmetic and rounding noise in f32."""
+    """Names of the per-channel parameters that feed a BatchNorm directly
+    (within an nn.Sequential): a conv's bias, and the weight and bias of the
+    GroupNorm that ends an MMConv. In train mode the norm subtracts the batch
+    mean, which removes a per-channel shift exactly, and divides by the batch
+    deviation, which removes a per-channel scale but for the norm's eps: their
+    gradient is zero in exact arithmetic (the scale's, to ~eps / variance)
+    and rounding noise in f32."""
+    from mm_unet_tpu_torch.models.mm_unet import MMConv
+
     names = set()
     for prefix, m in model.named_modules():
         if isinstance(m, torch.nn.Sequential):
             for i, (conv, norm) in enumerate(zip(m, list(m)[1:])):
-                if (isinstance(conv, torch.nn.Conv2d) and conv.bias is not None
-                        and isinstance(norm, torch.nn.BatchNorm2d)):
-                    names.add(f"{prefix}.{i}.bias" if prefix else f"{i}.bias")
+                if not isinstance(norm, torch.nn.BatchNorm2d):
+                    continue
+                name = f"{prefix}.{i}" if prefix else f"{i}"
+                if isinstance(conv, torch.nn.Conv2d) and conv.bias is not None:
+                    names.add(f"{name}.bias")
+                elif isinstance(conv, MMConv):
+                    names.update((f"{name}.gn.weight", f"{name}.gn.bias"))
     return names
 
 
@@ -438,29 +462,62 @@ def mamba_step_shapes(model) -> tuple[dict, list]:
     return shapes, hooks
 
 
-def kernel_device_ms(fn, fragment: str, reps: int = 3) -> float:
+def kernel_device_ms(fn, fragments: tuple, reps: int = 3) -> float:
     """Device time of one call of fn() (already warm) spent in the kernels
-    whose names contain `fragment`, each launched once per call, by
+    whose names contain one of `fragments`, each launched once per call, by
     torch.profiler over `reps` calls: without the host's share, which
     decides `cuda_ms` at small shapes. Each kernel's time is its mean over
-    the launches the profiler recorded, which need not be all of them."""
+    the launches the profiler recorded, which need not be all of them; a
+    window in which it recorded none of them is profiled again (up to three
+    windows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    ms = 0.0
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and fragment in e.key) / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(f in e.key for f in fragments)) / 1e3
+        if ms > 0:
+            break
+    return ms
 
 
-def phase1_step_shapes(shapes: dict, seed: int) -> list:
-    """Kernel 2 alone at every shape that a train step gives it (from
-    `mamba_step_shapes`): `torch.autograd.grad` through `mamba_fused_scan`,
-    mean of 3 calls after one (`ms`, CUDA events, host included), and the
-    device time of its kernels in 3 more (`kernel_ms`); random inputs made
-    on the card. Timing only: the comparisons are phase 1's."""
+# kernel-name fragments of each fused Mamba kernel's launches (kernel 2's
+# pass C is `mamba_bwd_chunk_kernel`, which holds neither forward fragment)
+FWD_KERNELS = ("mamba_chunk_kernel", "mamba_combine_kernel")
+BWD_KERNELS = ("mamba_bwd_",)
+
+
+def fwd_blocks_per_sm(D: int, R: int, N: int, dtype) -> list:
+    """Resident blocks per SM of kernel 1's two chunk passes (zero-state,
+    final) at the launch `mamba_fused_scan` makes for this shape, by the
+    CUDA runtime's occupancy calculator."""
+    import ctypes
+
+    from mm_unet_tpu_torch import _build
+    from mm_unet_tpu_torch.ops.mamba_fused import _chunk_len
+
+    out = (ctypes.c_int * 2)()
+    err = _build.library().mamba_fused_fwd_blocks_per_sm(
+        D, R, N, _chunk_len(D, R + 2 * N), int(dtype == torch.bfloat16), out)
+    _build.check(err, "mamba_fused_fwd_blocks_per_sm")
+    return list(out)
+
+
+def phase1_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
+    """Kernels 1 and 2 alone at every shape that a train step gives them
+    (from `mamba_step_shapes`): kernel 1 as a forward-only call of
+    `mamba_fused_scan` under `torch.no_grad()`, kernel 2 as
+    `torch.autograd.grad` through it; each the mean of 3 calls after one
+    (`ms`, CUDA events, host included) and the device time of its kernels in
+    3 more (`kernel_ms`); random inputs made on the card. Kernel 1's lines
+    also carry the resident blocks per SM of its two chunk passes. Timing
+    only: the comparisons are phase 1's. Returns (forward, backward) records."""
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
 
     dev = torch.device("cuda")
@@ -469,23 +526,33 @@ def phase1_step_shapes(shapes: dict, seed: int) -> list:
     def rn(*s, scale=1.0):
         return torch.randn(*s, generator=cgen, device=dev) * scale
 
-    recs = []
+    fwd, bwd = [], []
     for (B, D, R, N, W, L, rev, dt), calls in sorted(shapes.items()):
         dtype = getattr(torch, dt)
         xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
+        x = xz.to(dtype)
+        shape = dict(B=B, D=D, R=R, N=N, W=W, L=L, reverse=rev, dtype=dt)
+        call = lambda: mamba_fused_scan(x, *w, reverse=rev)  # noqa: E731
+        with torch.no_grad():
+            ms = cuda_ms(call, reps=3)
+            kms = kernel_device_ms(call, FWD_KERNELS)
+        bms, by = bound(*mamba_work(B, D, L, N, R, W, x.element_size(), False))
+        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
+                   blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype))
+        print(f"phase1 mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
+        fwd.append(rec)
+
         dout = rn(B, 1, D, L).to(dtype)
-        out, live, _ = grads_of(lambda *a: mamba_fused_scan(*a, reverse=rev),
-                                [xz.to(dtype), *w], dout)
+        out, live, _ = grads_of(lambda *a: mamba_fused_scan(*a, reverse=rev), [x, *w], dout)
         call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
         ms = cuda_ms(call, reps=3)
         bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
-        rec = dict(B=B, D=D, R=R, N=N, W=W, L=L, reverse=rev, dtype=dt, ms=ms,
-                   kernel_ms=kernel_device_ms(call, "mamba_bwd_"), bound_ms=bms, bound_by=by,
-                   launches_per_step=calls)
+        rec = dict(shape, ms=ms, kernel_ms=kernel_device_ms(call, BWD_KERNELS), bound_ms=bms,
+                   bound_by=by, launches_per_step=calls)
         print(f"phase1 mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
-        recs.append(rec)
-        del xz, w, dout, out, live
-    return recs
+        bwd.append(rec)
+        del xz, x, w, dout, out, live
+    return fwd, bwd
 
 
 def phase1_scan(gen) -> dict:
@@ -963,6 +1030,102 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     return {"serve": serve, "train": train_counts}
 
 
+def phase7_mm_routes(seed: int) -> None:
+    """MM_Net with full-width channels and depths (1,1,1,1), f32
+    (`mamba_dtype=None`), remat and side-output dropout off, the same
+    weights on both routes of its Mambas (all of d_state 16): route a, the
+    megakernels (kernels 1/2), against route b, the grouped selective scan
+    (kernels 5/6, `scan_impl="pallas"` on every Mamba), at MM_Net's own
+    shapes (D = 128, 6 and 2). Eval logits at 2x3x512², then every parameter
+    gradient of one train-mode forward and backward (DiceFocal), each
+    relative to its own tensor, with each route's kernel launches.
+
+    The gradient of an MMConv's row sampling w.r.t. its rows jumps where
+    floor() of a row crosses an integer, so a row within rounding of one
+    (which the two routes' Mamba outputs, equal to ~1e-7, can put on either
+    side) moves its offset path's gradients by far more than the routes
+    differ. So the train passes after route a's first sample at its rows,
+    with the gradient still through their own Mambas (`y + (y_a -
+    y).detach()`), and the line reports the rows' largest difference. Two
+    more passes are reported beside the check and gate nothing: route a
+    again (the run-to-run spread of the card's sums) and route b unpinned.
+    The line is printed before a failure ends the run."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.models.mamba import Mamba
+    from mm_unet_tpu_torch.models.mm_unet import MMConv
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+
+    model = give_model("MM_Net", device="cuda", generator=torch.Generator().manual_seed(seed),
+                       mamba_dtype=None, depths=(1, 1, 1, 1), remat=False, sideout_drop=0.0)
+    mambas = [m for m in model.modules() if isinstance(m, Mamba)]
+    mmconvs = [m for m in model.modules() if isinstance(m, MMConv)]
+    batch = synthetic_batch(2, 512, seed + 6)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    counters = {"mamba_fused_scan": mamba_fused_scan, "selective_scan": selective_scan_chunked}
+    rows, row_err = {}, [0.0]
+
+    def sampler(m, pin):
+        def sample_conv(feat, y_rows):
+            if pin == "record":
+                rows[m] = y_rows.detach()
+            elif pin == "pin":
+                row_err[0] = max(row_err[0], (y_rows - rows[m]).abs().max().item())
+                y_rows = y_rows + (rows[m] - y_rows).detach()
+            return MMConv._sample_conv(m, feat, y_rows)
+        return sample_conv
+
+    def set_route(impl):
+        for m in mambas:
+            m.scan_impl = impl
+
+    logits, grads, launches = {}, {}, {}
+    for route, impl in (("a", None), ("b", "pallas")):  # eval first: a train pass moves
+        set_route(impl)                                 # the running statistics
+        with torch.inference_mode():
+            logits[route] = model.eval()(x)
+    launches_ok = True
+    for route, impl, pin in (("a", None, "record"), ("a again", None, "pin"),
+                             ("b", "pallas", "pin"), ("b unpinned", "pallas", None)):
+        set_route(impl)
+        want = {name: 0 for name in counters}
+        for m in mambas:
+            for name, n in m.kernel_launches_per_forward().items():
+                want[name] += n
+        for fn in counters.values():
+            fn.launches = fn.bwd_launches = 0
+        for m in mmconvs:
+            m._sample_conv = sampler(m, pin)
+        model.train().zero_grad(set_to_none=True)
+        dice_focal_loss(model(x), y).backward()
+        torch.cuda.synchronize()
+        for m in mmconvs:
+            del m._sample_conv
+        grads[route] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        # the route's own kernels, one forward and one backward launch per call
+        launches[route] = {name: [fn.launches, fn.bwd_launches] for name, fn in counters.items()}
+        launches_ok = launches_ok and all(launches[route][name] == [n, n]
+                                          for name, n in want.items())
+    err, rel = rel_err(logits["b"], logits["a"])
+    zero = bn_fed_biases(model)
+    bad, worst = tensor_grad_errs(grads["b"], grads["a"], MM_ROUTE_TOL, zero)
+    beside = {}
+    for route in ("a again", "b unpinned"):
+        n_out, w = tensor_grad_errs(grads[route], grads["a"], MM_ROUTE_TOL, zero)
+        beside[route] = dict(grads_out_of_tol=n_out, worst=w[:2])
+    ok = (bool(torch.isfinite(logits["a"]).all()) and bool(torch.isfinite(logits["b"]).all())
+          and rel <= MM_ROUTE_LOGITS_TOL and bad == 0 and launches_ok)
+    print("phase7 mm_net routes " + json.dumps(dict(
+        shape=list(logits["a"].shape), depths=[1, 1, 1, 1], logits_max_abs_err=err,
+        logits_rel_err=rel, logits_tol=MM_ROUTE_LOGITS_TOL, sample_rows_max_abs_err=row_err[0],
+        params=len(grads["a"]), grads_out_of_tol=bad, tol_relative=MM_ROUTE_TOL, worst=worst,
+        beside=beside, launches=launches, launches_ok=launches_ok, ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase7 FAILED: MM_Net's two Mamba routes disagree")
+
+
 # kernel-name fragments -> the layer that launched the kernel
 _KERNEL_GROUPS = (
     ("mamba_fused_scan", ("mamba_chunk_kernel", "mamba_combine_kernel")),
@@ -1040,11 +1203,12 @@ def main() -> None:
     serve = phase3_serving(args.seed, args.profile)
     train, shapes = phase4_training(args.seed, args.profile)
     print(f"phases 2-4 done at {time.perf_counter() - t_all:.1f} s", flush=True)
-    steps = phase1_step_shapes(shapes, args.seed)
+    fwd_steps, bwd_steps = phase1_step_shapes(shapes, args.seed)
     print(f"phase1 step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase5_dkdualnet(args.seed)
     dk = phase6_dkdualnet_path(args.seed, args.profile)
-    print(f"phases 5-6 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    phase7_mm_routes(args.seed)
+    print(f"phases 5-7 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -1068,17 +1232,21 @@ def main() -> None:
                 "library_ms": None,  # no single PyTorch call computes this function
                 "timed": "sum over the phase-1 bf16 shapes"}
 
+    def step_sums(steps):
+        # per MM_Net train step: each shape's time and bound times its launches
+        return {**{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps)
+                   for k in ("ms", "kernel_ms", "bound_ms")},
+                "step_shapes": [{k: r[k] for k in ("D", "L", "reverse", "ms", "kernel_ms",
+                                                   "bound_ms", "launches_per_step")}
+                                for r in steps]}
+
     mm = {"serve": serve, "train": train}
     print(smi(), flush=True)
     print(json.dumps({"kernels": [
         summary("mamba_fused_scan", "mm_unet_tpu_torch/csrc/mamba_fused_fwd.cu",
-                "mm_unet_tpu/ops/mamba_fused.py:240", mm),
+                "mm_unet_tpu/ops/mamba_fused.py:240", mm, **step_sums(fwd_steps)),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
-                "mm_unet_tpu/ops/mamba_fused.py:288", mm,
-                **{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps)
-                   for k in ("ms", "kernel_ms", "bound_ms")},
-                step_shapes=[{k: r[k] for k in ("D", "L", "reverse", "ms", "kernel_ms", "bound_ms",
-                                                "launches_per_step")} for r in steps]),
+                "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps)),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",

@@ -38,6 +38,8 @@ _SIGNATURES = {
     # xz, out, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
     # B, G, D, L, N, R, W, T, reverse, is_bf16, stream
     "mamba_fused_fwd": [VP] * 11 + [I32] * 10 + [VP],
+    # D, R, N, T, is_bf16, out (int[2]: resident blocks per SM of the two chunk passes)
+    "mamba_fused_fwd_blocks_per_sm": [I32] * 5 + [VP],
     # xz, dout, dxz, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
     # gcarry, dpre, p_dxp, p_ddtw, p_ddtb, p_dA, p_dD, p_dconv,
     # B, G, D, L, N, R, W, T, conv_tile, reverse, is_bf16, stream

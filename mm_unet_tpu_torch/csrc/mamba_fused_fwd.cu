@@ -149,6 +149,27 @@ __global__ void mamba_combine_kernel(MambaArgs a) {
   }
 }
 
+// one thread per (channel, state) pair, in whole warps, at most 512; the
+// f32 rows of the chunk in shared memory
+int threads_for(int D, int N) {
+  const int pairs = D * N;
+  return pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
+}
+size_t smem_for(int D, int R, int N, int T) { return (size_t)(2 * D + R + 2 * N) * T * sizeof(float); }
+
+template <typename TI>
+int blocks_per_sm(int threads, size_t smem, int* out) {
+  int err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err) err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], mamba_chunk_kernel<TI, false>, threads, smem);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], mamba_chunk_kernel<TI, true>, threads, smem);
+  return err;
+}
+
 template <typename TI>
 int launch(const MambaArgs& a, int threads, size_t smem, cudaStream_t stream) {
   const dim3 grid(a.nC, a.B * a.G);
@@ -190,12 +211,19 @@ extern "C" int mamba_fused_fwd(const void* xz, void* out, const void* conv_w,
   a.B = B; a.G = G; a.D = D; a.L = L; a.N = N; a.R = R; a.W = W; a.T = T;
   a.nC = (L + T - 1) / T;
   a.reverse = reverse != 0;
-  // one thread per (channel, state) pair, in whole warps, at most 512
-  const int pairs = D * N;
-  const int threads = pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
-  const size_t smem = (size_t)(2 * D + R + 2 * N) * T * sizeof(float);
+  const int threads = threads_for(D, N);
+  const size_t smem = smem_for(D, R, N, T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem, st) : launch<float>(a, threads, smem, st);
+}
+
+// resident blocks per SM of pass 1 and pass 3 (out[0], out[1]) at the launch
+// mamba_fused_fwd makes for these sizes
+extern "C" int mamba_fused_fwd_blocks_per_sm(int D, int R, int N, int T, int is_bf16, int* out) {
+  const int threads = threads_for(D, N);
+  const size_t smem = smem_for(D, R, N, T);
+  return is_bf16 ? blocks_per_sm<__nv_bfloat16>(threads, smem, out)
+                 : blocks_per_sm<float>(threads, smem, out);
 }
 
 extern "C" const char* mmu_error_string(int err) {

@@ -63,6 +63,19 @@ def test_mamba_fused_scan_matches_jax(W, reverse, bias):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N", [8, 32])
+def test_mamba_fused_scan_state_counts_match_jax(N, reverse):
+    """The other state counts the CUDA kernels are built for that the JAX
+    kernel takes (d_state a multiple of 8): 8 and 32."""
+    args = _mamba_inputs(D=8, L=40, G=1, W=4, bias=True, seed=N + reverse, N=N)
+    jx, th = _both(args, "float32")
+    want = np.asarray(jax_mamba_fused_scan(*jx, reverse=reverse))
+    got = mamba_fused_scan(*th, reverse=reverse)
+    assert got.shape == (2, 1, 8, 40) and got.dtype == torch.float32
+    assert_close(got.numpy(), want, TOL["float32"], f"N={N} reverse={reverse}")
+
+
+@pytest.mark.parametrize("reverse", [False, True])
 def test_mamba_fused_scan_groups_and_bf16_match_jax(reverse):
     args = _mamba_inputs(D=6, L=33, G=2, W=4, bias=True, seed=7)
     for dtype in ("float32", "bfloat16"):
@@ -177,8 +190,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
 @pytest.mark.parametrize("name", ["MM_Net", "dkDualNet"])
 def test_chunk_lengths_split_into_backward_sub_chunks(name):
     """Every megakernel Mamba of the model gets a chunk of whole sub-chunks
-    of the backward's pass C (which rebuilds the states of `_SUB_CHUNK`
-    tokens at a time in registers), within the kernels' range."""
+    of the forward's pass 3 and the backward's pass C (which keep
+    `_SUB_CHUNK` tokens at a time in registers), within the kernels' range."""
     from mm_unet_tpu_torch.models import give_model
     from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.ops.mamba_fused import _SUB_CHUNK, _chunk_len
