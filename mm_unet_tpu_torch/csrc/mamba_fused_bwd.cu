@@ -141,7 +141,7 @@ __global__ void mamba_bwd_local_kernel(BwdArgs a) {
   const Row w = row_of(a, bg % a.G);
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * a.L;
   load_dy<TI>(a, bg, t0, dy_s);
-  mmu::recompute_chunk<TI, 1>(x, D, a.L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
+  mmu::recompute_chunk<TI>(x, D, a.L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
                               w.dtb, u_s, dt_s, xd_s);
   const float* Cs = xd_s + (R + N) * ld;
   const size_t sbase = (size_t)bg * a.nC + c;
@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
   load_dy<TI>(a, bg, t0, dy_s);
   for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
-  mmu::recompute_chunk<TI, 1>(x, D, L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
+  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
                               w.dtb, u_s, dt_s, xd_s);
 
   const float* Bs = xd_s + R * ld;

@@ -55,10 +55,10 @@ template <typename TI, bool FINAL>
 __global__ void mamba_chunk_kernel(MambaArgs a) {
   extern __shared__ float smem[];
   const int D = a.D, T = a.T, N = a.N, R = a.R, W = a.W, L = a.L;
-  const int E = R + 2 * N;
-  float* u_s = smem;          // [D][T] conv + silu output
-  float* dt_s = u_s + D * T;  // [D][T] dt; pass 3 overwrites it with y
-  float* xd_s = dt_s + D * T; // [E][T] x_dbl: dt rows, then B, then C
+  const int E = R + 2 * N, ld = T + 1;  // rows of T + 1 floats
+  float* u_s = smem;           // [D] rows: conv + silu output
+  float* dt_s = u_s + D * ld;  // [D] dt; pass 3 overwrites it with y
+  float* xd_s = dt_s + D * ld; // [E] x_dbl: dt rows, then B, then C
 
   const int c = blockIdx.x;   // chunk, in token order
   const int bg = blockIdx.y;  // b * G + g
@@ -75,12 +75,12 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
 
   // 1.-3. conv + SiLU, x_dbl = x_proj @ u (dt rows rounded to the stream
   //        dtype), dt = softplus(dt_proj @ x_dbl[:R] + dt_b); 0 past L
-  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, W, a.reverse, cw, cb, xp, dtw, dtb, u_s, dt_s,
-                           xd_s);
+  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, W, a.reverse, cw, cb, xp, dtw, dtb, u_s,
+                              dt_s, xd_s);
 
   // 4. the scan: one thread per (d, n); N-lane groups share a channel
-  const float* Bs = xd_s + R * T;
-  const float* Cs = Bs + N * T;
+  const float* Bs = xd_s + R * ld;
+  const float* Cs = Bs + N * ld;
   const int lane = threadIdx.x & 31;
   const unsigned gmask = (N == 32) ? 0xffffffffu : (((1u << N) - 1u) << (lane & ~(N - 1)));
   const size_t sbase = (size_t)bg * a.nC + c;
@@ -96,14 +96,14 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
     if (FINAL && a.nC == 1) a.state[sbase * D * N + p] = 0.f;
     for (int s = 0; s < T; ++s) {
       const int t = a.reverse ? T - 1 - s : s;
-      const float dtv = dt_s[d * T + t];
-      const float uv = u_s[d * T + t];
-      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * T + t];
+      const float dtv = dt_s[d * ld + t];
+      const float uv = u_s[d * ld + t];
+      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
       if (FINAL) {
-        float yp = h * Cs[n * T + t];
+        float yp = h * Cs[n * ld + t];
         for (int off = N / 2; off > 0; off >>= 1) yp += __shfl_xor_sync(gmask, yp, off);
         // every lane of the group has read dt[d][t] before the shuffle
-        if (n == 0) dt_s[d * T + t] = yp + Dv[d] * uv;
+        if (n == 0) dt_s[d * ld + t] = yp + Dv[d] * uv;
       } else {
         sum_dt += dtv;
       }
@@ -123,7 +123,7 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
       const int d = i / T, t = i - d * T, gt = t0 + t;
       if (gt < L) {
         const float zv = mmu::to_f32(z[(size_t)d * L + gt]);
-        out[(size_t)d * L + gt] = mmu::from_f32<TI>(dt_s[i] * mmu::silu(zv));
+        out[(size_t)d * L + gt] = mmu::from_f32<TI>(dt_s[d * ld + t] * mmu::silu(zv));
       }
     }
   }
@@ -155,7 +155,9 @@ int threads_for(int D, int N) {
   const int pairs = D * N;
   return pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
 }
-size_t smem_for(int D, int R, int N, int T) { return (size_t)(2 * D + R + 2 * N) * T * sizeof(float); }
+size_t smem_for(int D, int R, int N, int T) {
+  return (size_t)(2 * D + R + 2 * N) * (T + 1) * sizeof(float);
+}
 
 template <typename TI>
 int blocks_per_sm(int threads, size_t smem, int* out) {
