@@ -9,6 +9,38 @@
 
 namespace mmu {
 
+constexpr int kS = 16;     // tokens per sub-chunk whose per-token values live in registers
+constexpr int kAhead = 8;  // chunks whose loads a combine pass issues together
+
+// Sums, over the N lanes of each state group, one value per token of a
+// sub-chunk, v[j] for token j < kS, and scatters the sums: at each level a
+// lane keeps the half of its tokens that its lane bit selects and adds its
+// partner's copy of that half, so the group spends kS - 1 shuffles where a
+// sum per token would spend kS log2(N). After it, lane n's v[i], i < kS / Ne,
+// holds the group's sum for token (n % N) / (N / Ne) * (kS / Ne) + i, where
+// Ne = min(N, kS) (for N = 32 lanes n and n ^ 1 hold the same sums). Every
+// lane of the warp must call it.
+template <int N>
+__device__ __forceinline__ void group_sum_scatter(float (&v)[kS], int lane) {
+  int cnt = kS;
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1) {
+    if (cnt > 1) {
+      const bool hi = lane & off;
+      cnt /= 2;
+#pragma unroll
+      for (int i = 0; i < kS / 2; ++i) {
+        if (i < cnt) {
+          const float send = hi ? v[i] : v[i + cnt];
+          v[i] = (hi ? v[i + cnt] : v[i]) + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+}
+
 // conv pre-activation at token gt (< L): bias + sum_k w_k x[gt -+ (W-1-k)],
 // taps read straight from xz (the halo across a chunk edge is a neighbour's
 // tokens); `reverse` is the anti-causal conv of the right-to-left scan

@@ -73,7 +73,9 @@
 
 namespace {
 
-constexpr int kS = 16;    // tokens per sub-chunk of pass C, whose states live in registers
+using mmu::group_sum_scatter;
+using mmu::kAhead;
+using mmu::kS;            // tokens per sub-chunk of pass C, whose states live in registers
 constexpr int kTile = 4;  // rows (or tokens) per thread in pass C's small products
 constexpr int kMaxW = 8;  // widest conv
 
@@ -162,7 +164,6 @@ __global__ void mamba_bwd_local_kernel(BwdArgs a) {
 // from its successor in scan order. The walk is one dependent chain per
 // (b, d, n) with a load per chunk: the loads of kAhead chunks are issued
 // together, so a chain waits on memory once per kAhead chunks.
-constexpr int kAhead = 8;
 __global__ void __launch_bounds__(128) mamba_bwd_combine_kernel(BwdArgs a) {
   const int D = a.D, N = a.N, nC = a.nC;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -187,34 +188,6 @@ __global__ void __launch_bounds__(128) mamba_bwd_combine_kernel(BwdArgs a) {
         a.gcarry[(((size_t)bg * nC + c) * D + d) * N + n] = carry;
         carry = local[j] + expf(a_dn * dts[j]) * carry;
       }
-    }
-  }
-}
-
-// Sums, over the N lanes of each state group, one value per token of a
-// sub-chunk, v[j] for token j < kS, and scatters the sums: at each level a
-// lane keeps the half of its tokens that its lane bit selects and adds its
-// partner's copy of that half, so the group spends kS - 1 shuffles where a
-// sum per token would spend kS log2(N). After it, lane n's v[i], i < kS / Ne,
-// holds the group's sum for token (n % N) / (N / Ne) * (kS / Ne) + i, where
-// Ne = min(N, kS) (for N = 32 lanes n and n ^ 1 hold the same sums).
-template <int N>
-__device__ __forceinline__ void group_sum_scatter(float (&v)[kS], int lane) {
-  int cnt = kS;
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) {
-    if (cnt > 1) {
-      const bool hi = lane & off;
-      cnt /= 2;
-#pragma unroll
-      for (int i = 0; i < kS / 2; ++i) {
-        if (i < cnt) {
-          const float send = hi ? v[i] : v[i + cnt];
-          v[i] = (hi ? v[i + cnt] : v[i]) + __shfl_xor_sync(0xffffffffu, send, off);
-        }
-      }
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
     }
   }
 }

@@ -51,14 +51,15 @@ struct MambaArgs {
 
 // FINAL = false: pass 1 (zero entry state; emit end state and sum of dt).
 // FINAL = true: pass 3 (entry state from the combine; emit the gated y).
-template <typename TI, bool FINAL>
-__global__ void mamba_chunk_kernel(MambaArgs a) {
+// N, the state count, is a compile-time constant of pass 3's sums.
+template <typename TI, bool FINAL, int N>
+__global__ void __launch_bounds__(512, 2) mamba_chunk_kernel(MambaArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, N = a.N, R = a.R, W = a.W, L = a.L;
-  const int E = R + 2 * N, ld = T + 1;  // rows of T + 1 floats
-  float* u_s = smem;           // [D] rows: conv + silu output
-  float* dt_s = u_s + D * ld;  // [D] dt; pass 3 overwrites it with y
-  float* xd_s = dt_s + D * ld; // [E] x_dbl: dt rows, then B, then C
+  const int D = a.D, T = a.T, R = a.R, W = a.W, L = a.L;
+  const int ld = T + 1;         // rows of T + 1 floats
+  float* u_s = smem;            // [D] rows: conv + silu output
+  float* dt_s = u_s + D * ld;   // [D] dt; pass 3 overwrites it with y_pre + D u
+  float* xd_s = dt_s + D * ld;  // [R + 2N] x_dbl: dt rows, then B, then C
 
   const int c = blockIdx.x;   // chunk, in token order
   const int bg = blockIdx.y;  // b * G + g
@@ -67,7 +68,7 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
   const float* cw = a.conv_w + (size_t)g * D * W;
   const float* cb = a.conv_b + (size_t)g * D;
-  const float* xp = a.x_proj + (size_t)g * E * D;
+  const float* xp = a.x_proj + (size_t)g * (R + 2 * N) * D;
   const float* dtw = a.dt_w + (size_t)g * D * R;
   const float* dtb = a.dt_b + (size_t)g * D;
   const float* Ad = a.A + (size_t)g * D * N;
@@ -75,46 +76,69 @@ __global__ void mamba_chunk_kernel(MambaArgs a) {
 
   // 1.-3. conv + SiLU, x_dbl = x_proj @ u (dt rows rounded to the stream
   //        dtype), dt = softplus(dt_proj @ x_dbl[:R] + dt_b); 0 past L
-  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, W, a.reverse, cw, cb, xp, dtw, dtb, u_s,
-                              dt_s, xd_s);
+  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, W, a.reverse, cw, cb, xp, dtw, dtb, u_s, dt_s,
+                           xd_s);
 
   // 4. the scan: one thread per (d, n); N-lane groups share a channel
   const float* Bs = xd_s + R * ld;
   const float* Cs = Bs + N * ld;
-  const int lane = threadIdx.x & 31;
-  const unsigned gmask = (N == 32) ? 0xffffffffu : (((1u << N) - 1u) << (lane & ~(N - 1)));
+  constexpr int kS = mmu::kS;
+  constexpr int kNe = N < kS ? N : kS;  // lanes of a group that end with distinct sums
+  constexpr int kRep = N / kNe;         // lanes that hold each of them
+  const int lane = threadIdx.x & 31, nsub = T / kS;
   const size_t sbase = (size_t)bg * a.nC + c;
+  // every lane of a warp runs every walk (lanes past D * N with zero
+  // inputs), so pass 3's shuffles always see the full warp
   for (int p0 = 0; p0 < D * N; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
-    if (p >= D * N) continue;  // whole N-lane groups drop out together
-    const int d = p / N, n = p - d * N;
-    const float a_dn = Ad[d * N + n];
-    float h = 0.f, sum_dt = 0.f;
-    if (FINAL && a.nC > 1) h = a.state[sbase * D * N + p];
-    // one chunk: no pass 1 and no combine; its entry state, which the
-    // backward reads, is zero
-    if (FINAL && a.nC == 1) a.state[sbase * D * N + p] = 0.f;
-    for (int s = 0; s < T; ++s) {
-      const int t = a.reverse ? T - 1 - s : s;
-      const float dtv = dt_s[d * ld + t];
-      const float uv = u_s[d * ld + t];
-      h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
-      if (FINAL) {
-        float yp = h * Cs[n * ld + t];
-        for (int off = N / 2; off > 0; off >>= 1) yp += __shfl_xor_sync(gmask, yp, off);
-        // every lane of the group has read dt[d][t] before the shuffle
-        if (n == 0) dt_s[d * ld + t] = yp + Dv[d] * uv;
-      } else {
+    const bool live = p < D * N;
+    const int pp = live ? p : 0;
+    const int d = pp / N, n = pp - d * N;
+    float* dt_d = dt_s + d * ld;
+    const float* u_d = u_s + d * ld;
+    const float a_dn = Ad[pp];
+    if constexpr (!FINAL) {
+      if (!live) continue;  // no shuffles in pass 1
+      float h = 0.f, sum_dt = 0.f;
+      for (int s = 0; s < T; ++s) {
+        const int t = a.reverse ? T - 1 - s : s;
+        const float dtv = dt_d[t];
+        h = expf(dtv * a_dn) * h + dtv * u_d[t] * Bs[n * ld + t];
         sum_dt += dtv;
       }
-    }
-    if (!FINAL) {
       a.state[sbase * D * N + p] = h;
       if (n == 0) a.dtsum[sbase * D + d] = sum_dt;
+    } else {
+      float h = (live && a.nC > 1) ? a.state[sbase * D * N + p] : 0.f;
+      // one chunk: no pass 1 and no combine; its entry state, which the
+      // backward reads, is zero
+      if (live && a.nC == 1) a.state[sbase * D * N + p] = 0.f;
+      const float Dd = Dv[d];
+      for (int k = 0; k < nsub; ++k) {
+        float v[kS];  // this lane's h C at the sub-chunk's tokens
+#pragma unroll
+        for (int j = 0; j < kS; ++j) {
+          const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+          const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
+          h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
+          v[j] = h * Cs[n * ld + t];
+        }
+        // only the N lanes of channel d read dt[d], and each has read the
+        // sub-chunk's tokens of it above: after the butterfly, the owner of
+        // each token's sum overwrites that token's dt with y_pre + D u
+        mmu::group_sum_scatter<N>(v, lane);
+        if (live && n % kRep == 0) {
+#pragma unroll
+          for (int i = 0; i < kS / kNe; ++i) {
+            const int s = k * kS + n / kRep * (kS / kNe) + i, t = a.reverse ? T - 1 - s : s;
+            dt_d[t] = v[i] + Dd * u_d[t];
+          }
+        }
+      }
     }
   }
 
-  if (FINAL) {
+  if constexpr (FINAL) {
     __syncthreads();
     // 5. gate with silu(z) and write in the stream dtype, coalesced along L
     const TI* z = x + (size_t)D * L;
@@ -159,37 +183,47 @@ size_t smem_for(int D, int R, int N, int T) {
   return (size_t)(2 * D + R + 2 * N) * (T + 1) * sizeof(float);
 }
 
-template <typename TI>
-int blocks_per_sm(int threads, size_t smem, int* out) {
-  int err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!err) err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], mamba_chunk_kernel<TI, false>, threads, smem);
-  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], mamba_chunk_kernel<TI, true>, threads, smem);
-  return err;
+// passes 1-3 for the state count N; with `occupancy` set, the resident
+// blocks per SM of pass 1 and pass 3 instead of a launch
+template <typename TI, int N>
+int run(const MambaArgs& a, cudaStream_t stream, int* occupancy) {
+  const auto pass1 = mamba_chunk_kernel<TI, false, N>;
+  const auto pass3 = mamba_chunk_kernel<TI, true, N>;
+  const int threads = threads_for(a.D, N);
+  const size_t smem = smem_for(a.D, a.R, N, a.T);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(pass1, attr, (int)smem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(pass3, attr, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (occupancy) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], pass1, threads, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[1], pass3, threads, smem);
+    return err;
+  }
+  const dim3 grid(a.nC, a.B * a.G);
+  if (a.nC > 1) {
+    mamba_chunk_kernel<TI, false, N><<<grid, threads, smem, stream>>>(a);
+    const int64_t chains = (int64_t)a.B * a.G * a.D * N;
+    mamba_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
+  }
+  mamba_chunk_kernel<TI, true, N><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename TI>
-int launch(const MambaArgs& a, int threads, size_t smem, cudaStream_t stream) {
-  const dim3 grid(a.nC, a.B * a.G);
-  cudaError_t err;
-  if (a.nC > 1) {
-    err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    mamba_chunk_kernel<TI, false><<<grid, threads, smem, stream>>>(a);
-    const int64_t chains = (int64_t)a.B * a.G * a.D * a.N;
-    mamba_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
+int dispatch(const MambaArgs& a, cudaStream_t stream, int* occupancy) {
+  switch (a.N) {
+    case 1: return run<TI, 1>(a, stream, occupancy);
+    case 2: return run<TI, 2>(a, stream, occupancy);
+    case 4: return run<TI, 4>(a, stream, occupancy);
+    case 8: return run<TI, 8>(a, stream, occupancy);
+    case 16: return run<TI, 16>(a, stream, occupancy);
+    default: return run<TI, 32>(a, stream, occupancy);
   }
-  err = cudaFuncSetAttribute(mamba_chunk_kernel<TI, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  mamba_chunk_kernel<TI, true><<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
+
+bool valid(int N, int T) { return T % mmu::kS == 0 && N >= 1 && N <= 32 && !(N & (N - 1)); }
 
 }  // namespace
 
@@ -198,6 +232,7 @@ extern "C" int mamba_fused_fwd(const void* xz, void* out, const void* conv_w,
                                const void* dt_b, const void* A, const void* Dskip,
                                void* state, void* dtsum, int B, int G, int D, int L, int N,
                                int R, int W, int T, int reverse, int is_bf16, void* stream) {
+  if (!valid(N, T)) return cudaErrorInvalidValue;
   MambaArgs a;
   a.xz = xz;
   a.out = out;
@@ -213,19 +248,17 @@ extern "C" int mamba_fused_fwd(const void* xz, void* out, const void* conv_w,
   a.B = B; a.G = G; a.D = D; a.L = L; a.N = N; a.R = R; a.W = W; a.T = T;
   a.nC = (L + T - 1) / T;
   a.reverse = reverse != 0;
-  const int threads = threads_for(D, N);
-  const size_t smem = smem_for(D, R, N, T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem, st) : launch<float>(a, threads, smem, st);
+  return is_bf16 ? dispatch<__nv_bfloat16>(a, st, nullptr) : dispatch<float>(a, st, nullptr);
 }
 
 // resident blocks per SM of pass 1 and pass 3 (out[0], out[1]) at the launch
 // mamba_fused_fwd makes for these sizes
 extern "C" int mamba_fused_fwd_blocks_per_sm(int D, int R, int N, int T, int is_bf16, int* out) {
-  const int threads = threads_for(D, N);
-  const size_t smem = smem_for(D, R, N, T);
-  return is_bf16 ? blocks_per_sm<__nv_bfloat16>(threads, smem, out)
-                 : blocks_per_sm<float>(threads, smem, out);
+  if (!valid(N, T)) return cudaErrorInvalidValue;
+  MambaArgs a = {};
+  a.D = D; a.R = R; a.N = N; a.T = T;
+  return is_bf16 ? dispatch<__nv_bfloat16>(a, nullptr, out) : dispatch<float>(a, nullptr, out);
 }
 
 extern "C" const char* mmu_error_string(int err) {

@@ -27,8 +27,8 @@ from mm_unet_tpu_torch.ops.selective_scan import selective_scan_ref
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _CONV_TILE = 1024  # tokens per block of the backward's depthwise conv pass
-# tokens per sub-chunk of the backward's pass C (`kS` in csrc/mamba_fused_bwd.cu):
-# a chunk must hold whole sub-chunks
+# tokens per sub-chunk of the forward's pass 3 and the backward's pass C (`kS`
+# in csrc/mamba_chunk.cuh): a chunk must hold whole sub-chunks
 _SUB_CHUNK = 16
 
 

@@ -37,12 +37,26 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("D,R,L", [(6, 1, 1000), (128, 4, 700)])
-def test_mamba_fused_kernel_matches_plain(D, R, L, reverse, dtype):
+@pytest.mark.parametrize("D,R,N,L", [
+    (6, 1, 16, 1000), (128, 4, 16, 700),  # several chunks
+    (6, 1, 16, 100), (128, 4, 16, 50),    # one chunk
+    (2, 1, 16, 1000),   # chunks of 128: L ragged against the chunk and the 16-token sub-chunk
+    (96, 6, 16, 300),   # chunks of 64, dkDualNet's narrowest route-a width
+    (384, 12, 16, 200),  # chunks of 16 = one sub-chunk, 12 rounds of (d, n) pairs
+    (8, 1, 8, 500),     # four channels per warp
+    (7, 1, 8, 500),     # a warp whose last group of 8 lanes has no channel
+    (8, 1, 32, 500),    # one channel per warp
+    (96, 6, 16, 37),    # one chunk, ragged
+])
+def test_mamba_fused_kernel_matches_plain(D, R, N, L, reverse, dtype):
+    """Several chunks and a single chunk (no pass 1 and no combine); the
+    edges of pass 3's layout: state counts of 8 and 32, widths 2 to 384,
+    lanes past the last (channel, state) pair, tokens that end inside a
+    16-token sub-chunk."""
     dev = _device()
-    rng = np.random.default_rng(D + L)
+    rng = np.random.default_rng(D + L + (N != 16) * N)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
-    N, W, B = 16, 4, 2
+    W, B = 4, 2
     xz = torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype)
     args = (f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
             f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5),
