@@ -10,21 +10,38 @@
 // x_dbl and the gated output are rounded where the TPU kernel rounds them.
 // The conv output, x_dbl, dt, B and C live only in shared memory.
 //
-// What bounds it on the H100: the scan is a chain of dependent
-// exp/multiply-adds per (b, channel, state) along L, and MM_Net's MMConv
-// scans have only D = 6 or 2 channels (D * N = 96 or 32 recurrences per
-// image) over up to 65,536 tokens, far too few chains to fill 132 SMs if each
-// walked the whole sequence. The design cuts L into chunks of T tokens, one
-// block per (batch, chunk):
+// The design cuts L into chunks of T tokens, one block per (batch, chunk),
+// since MM_Net's MMConv scans have only D = 6 or 2 channels (D * N = 96 or
+// 32 chains per image) over up to 65,536 tokens, far too few to fill 132 SMs
+// if each walked the whole sequence:
 //   1. each block scans its chunk from a zero state and keeps the end state
 //      and the chunk's sum of dt (its decay is exp(A * sum dt));
 //   2. a small kernel combines the chunks in scan order per (b, d, n),
 //      turning end states into true entry states in place;
 //   3. each block rescans its chunk from its entry state and writes y.
 // Passes 1 and 3 both recompute conv, x_proj and dt from xz (cheap next to
-// the scan) instead of writing them to device memory. Inside a block one
-// thread owns one (channel, state) pair; the C-contraction over the N states
-// is a shuffle reduction inside an N-lane group.
+// the scan) instead of writing them to device memory. One thread walks one
+// (channel d, state n) chain; N-lane groups share a channel.
+//
+// What bounds it on the H100: not device memory (xz in, y out) but the
+// shared-memory traffic of the scans, issued through the SM's one memory
+// pipe, and the latency of their dependent exp and multiply-add chains. Per
+// token a lane reads dt, u and B (pass 3 also C), and pass 3 sums h C over
+// the N lanes of its channel. The design cuts that traffic three ways:
+//   - rows of T + 1 floats: the N lanes of a channel reading B or C at one
+//     token hit N distinct banks, as do neighbouring channels reading dt or
+//     u (rows of T floats put them in one bank: N-way conflicts on every
+//     token of both passes), and x_proj @ u is tiled over registers;
+//   - the sum over the states by a scattering butterfly: pass 3 walks its
+//     chunk in sub-chunks of kS tokens, each lane keeping h C at the
+//     sub-chunk's tokens in registers; one butterfly sums them over the
+//     group and leaves each lane the sums of its own tokens (kS - 1 shuffles
+//     where a sum per token takes kS log2 N), and those lanes write
+//     y_pre + D u for them. Pass 3 is templated on N;
+//   - the combine issues the loads of kAhead chunks together, so a chain
+//     waits on memory once per kAhead chunks (D = 6 at L = 65,536 walks 512).
+// At MM_Net's widest scan (D = 128, R = 4, N = 16, T = 64) a block takes
+// 512 threads and 76 KB of shared memory, and two fit on an SM.
 #include <cstdint>
 
 #include "common.cuh"
@@ -154,8 +171,11 @@ __global__ void __launch_bounds__(512, 2) mamba_chunk_kernel(MambaArgs a) {
 }
 
 // Pass 2: for each (b, g, d, n), walk the chunks in scan order and replace
-// each chunk's zero-entry end state by its true entry state.
-__global__ void mamba_combine_kernel(MambaArgs a) {
+// each chunk's zero-entry end state by its true entry state. The walk is one
+// dependent chain with a load per chunk: the loads of kAhead chunks are
+// issued together, so a chain waits on memory once per kAhead chunks.
+__global__ void __launch_bounds__(128) mamba_combine_kernel(MambaArgs a) {
+  constexpr int kAhead = mmu::kAhead;
   const int D = a.D, N = a.N, nC = a.nC;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)a.B * a.G * D * N) return;
@@ -163,13 +183,23 @@ __global__ void mamba_combine_kernel(MambaArgs a) {
   const int64_t bg = i / ((int64_t)D * N);
   const float a_dn = a.A[((size_t)(bg % a.G) * D + d) * N + n];
   float carry = 0.f;
-  for (int s = 0; s < nC; ++s) {
-    const int c = a.reverse ? nC - 1 - s : s;
-    const size_t sc = (size_t)bg * nC + c;
-    const float h_end = a.state[(sc * D + d) * N + n];
-    const float decay = expf(a_dn * a.dtsum[sc * D + d]);
-    a.state[(sc * D + d) * N + n] = carry;
-    carry = decay * carry + h_end;
+  for (int s0 = 0; s0 < nC; s0 += kAhead) {
+    float h_end[kAhead], dts[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int s = s0 + j, c = a.reverse ? nC - 1 - s : s;
+      const size_t sc = (size_t)bg * nC + c;
+      h_end[j] = s < nC ? a.state[(sc * D + d) * N + n] : 0.f;
+      dts[j] = s < nC ? a.dtsum[sc * D + d] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int s = s0 + j, c = a.reverse ? nC - 1 - s : s;
+      if (s < nC) {
+        a.state[(((size_t)bg * nC + c) * D + d) * N + n] = carry;
+        carry = expf(a_dn * dts[j]) * carry + h_end[j];
+      }
+    }
   }
 }
 
@@ -205,7 +235,7 @@ int run(const MambaArgs& a, cudaStream_t stream, int* occupancy) {
   if (a.nC > 1) {
     mamba_chunk_kernel<TI, false, N><<<grid, threads, smem, stream>>>(a);
     const int64_t chains = (int64_t)a.B * a.G * a.D * N;
-    mamba_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
+    mamba_combine_kernel<<<(unsigned)((chains + 127) / 128), 128, 0, stream>>>(a);
   }
   mamba_chunk_kernel<TI, true, N><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
