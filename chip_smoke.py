@@ -114,21 +114,33 @@ MM_ROUTE_LOGITS_TOL = 2e-4
 MM_ROUTE_TOL = 5e-2
 TRAIN_STEPS = 6
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
-# memory bytes/s, and f32 operations/s outside the tensor cores (every
-# kernel here runs on the FMA units); a kernel's bound is the larger of its
-# bytes (each input read once, each output written once) over the first and
-# its operations over the second
+# memory bytes/s, f32 operations/s outside the tensor cores, and the dense
+# bf16 tensor-core rate; a kernel's bound is the larger of its bytes (each
+# input read once, each output written once) over the first and its
+# operations over their rates: the tap-conv's products of a bf16 stream
+# (bf16 x bf16 -> f32) at the tensor cores' rate, every other operation and
+# every f32 stream at the FMA units' rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 # dkDualNet's three grouped scans at 512², batch 8: (channels per direction,
 # tokens) of stages 2, 3 and 4, two directions each, 16 states
 DK_SCANS = ((96, 16384), (192, 4096), (384, 1024))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least time in ms, what bounds it) for `nbytes` moved and `ops` done."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for `nbytes` moved, `ops` done on
+    the FMA units and `tc_ops` on the bf16 tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / F32_OPS_PER_S + tc_ops / BF16_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_reckoning(nbytes: float, ops: float, tc_ops: float = 0.0) -> float:
+    """The bound in ms with every operation priced at the f32 rate, as this
+    script priced the tap-conv before its bf16 products ran on the tensor
+    cores."""
+    return bound(nbytes, ops + tc_ops)[0]
 
 
 def mamba_work(B, D, L, N, R, W, es, backward):
@@ -145,14 +157,20 @@ def mamba_work(B, D, L, N, R, W, es, backward):
     return es * B * L * 3 * D + weights, B * L * (D * (2 * W + 2 * E + 2 * R + 14) + D * N * 8)
 
 
-def tap_work(B, HW, C, F, K, es, backward):
-    """(bytes, operations) of one tap-conv: feat, row coordinates and kernel
-    in, output out (backward: also dout in, dfeat, dy and dkernel out); the
-    gathered lerp and the (K C) x F product per pixel (backward: two)."""
-    px = B * HW * HW
+def tap_work(B, H, W, C, F, K, es, backward):
+    """(bytes, FMA-unit operations, tensor-core operations) of one tap-conv:
+    feat, row coordinates and kernel in, output out (backward: also dout in,
+    dfeat, dy, dkernel and dbias out); per pixel the gathered lerp and the
+    (K C) x F product (backward: the lerp, the scatter and dy, and two
+    products). A bf16 stream's products run on the tensor cores."""
+    px = B * H * W
     if backward:
-        return px * (2 * C * es + 2 * K * 4 + F * es) + 8 * K * C * F + 4 * F, px * (4 * K * C * F + 8 * K * C)
-    return px * (C * es + K * 4 + F * es) + 4 * (K * C * F + F), px * (2 * K * C * F + 3 * K * C)
+        nbytes = px * (2 * C * es + 2 * K * 4 + F * es) + 8 * K * C * F + 4 * F
+        prod, rest = px * 4 * K * C * F, px * 8 * K * C
+    else:
+        nbytes = px * (C * es + K * 4 + F * es) + 4 * (K * C * F + F)
+        prod, rest = px * 2 * K * C * F, px * 3 * K * C
+    return (nbytes, rest, prod) if es == 2 else (nbytes, rest + prod, 0.0)
 
 
 def scan_work(B, Dm, L, N, G, es, bes, streams, backward, const_bc=False):
@@ -270,10 +288,11 @@ def phase1_kernels(gen) -> dict:
             err, rel, ok = compare(got, want, dtype)
             ms = cuda_ms(lambda: tap_conv(f, y, ker, bias, shifts), reps=20)
             plain_ms = cuda_ms(lambda: tap_conv_ref(f, y, ker, bias, shifts), reps=5)
-            bms, by = bound(*tap_work(B, hw, C, F, K, f.element_size(), False))
+            work = tap_work(B, hw, hw, C, F, K, f.element_size(), False)
+            bms, by = bound(*work)
             rec = dict(HW=hw, C=C, F=F, K=K, B=B, dtype=str(dtype)[6:], max_abs_err=err,
                        rel_err=rel, tol=TOL[dtype], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, ok=ok)
+                       bound_by=by, bound_ms_f32_reckoning=f32_reckoning(*work), ok=ok)
             print(f"phase1 tap_conv {json.dumps(rec)}", flush=True)
             results["tap_conv"].append(rec)
             failed += [] if ok else [rec]
@@ -404,7 +423,8 @@ def phase1_backward(gen) -> dict:
         bms, by = bound(*work)
         rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(e for e, _ in errs.values()),
                    rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype], errs=errs,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ok=ok)
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   bound_ms_f32_reckoning=f32_reckoning(*work), ok=ok)
         print(f"phase1 {kind} {json.dumps(rec)}", flush=True)
         results[kind].append(rec)
         failed.extend([] if ok else [rec])
@@ -435,7 +455,7 @@ def phase1_backward(gen) -> dict:
                 lambda *a: tap_conv(*a, shifts), lambda *a: tap_conv_ref(*a, shifts),
                 [inputs[0].to(dtype), *inputs[1:]], dout.to(dtype),
                 ["feat", "y", "kernel", "bias"], dtype, plain_reps=3,
-                work=tap_work(B, hw, C, F, K, dout.to(dtype).element_size(), True))
+                work=tap_work(B, hw, hw, C, F, K, dout.to(dtype).element_size(), True))
     if failed:
         raise SystemExit(f"phase1 FAILED: {len(failed)} backward comparisons out of tolerance")
     return results
@@ -471,21 +491,66 @@ def kernel_device_ms(fn, fragments: tuple, reps: int = 3) -> float:
     the launches the profiler recorded, which need not be all of them; a
     window in which it recorded none of them is profiled again (up to three
     windows)."""
+    return kernel_device_ms_by(fn, {"all": fragments}, reps)["all"]
+
+
+def kernel_device_ms_by(fn, groups: dict, reps: int = 3) -> dict:
+    """`kernel_device_ms` for several groups of fragments from the same
+    windows: {group: device ms per call}; a window is profiled again while
+    a group has no recorded launch."""
     from torch.profiler import ProfilerActivity, profile
 
-    ms = 0.0
+    ms = {}
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total / e.count for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(f in e.key for f in fragments)) / 1e3
-        if ms > 0:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = {g: sum(e.self_device_time_total / e.count for e in events
+                     if any(f in e.key for f in frags)) / 1e3 for g, frags in groups.items()}
+        if all(v > 0 for v in ms.values()):
             break
     return ms
+
+
+def call_device_ops(fn) -> dict:
+    """Every operation one call of fn() (already warm) puts on the device,
+    by torch.profiler: kernels, memsets and copies, the kernel wrapper's
+    own PyTorch launches included ({"launches": n, "device_ms": t,
+    "names": {name: count}})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"launches": sum(e.count for e in events),
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+            "names": {e.key[:60]: e.count for e in events}}
+
+
+def tap_step_shapes(model) -> tuple[dict, list]:
+    """({shape: tap-conv calls}, hooks): forward hooks on the model's
+    MMConvs that count, per forward, the one tap-conv each makes at (batch,
+    H, W, C, F, K, stream dtype), read from the module's input (B, C, H, W)
+    and its weights; a train step's backward launches kernel 4 once per
+    call."""
+    from mm_unet_tpu_torch.models.mm_unet import MMConv
+
+    shapes: dict = {}
+
+    def record(mod, inputs, _):
+        bsz, c, h, w = inputs[0].shape
+        key = (bsz, h, w, c, mod.dsc_conv_x.weight.shape[0], mod.kernel_size,
+               str(inputs[0].dtype)[6:])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.modules() if isinstance(m, MMConv)]
+    return shapes, hooks
 
 
 # kernel-name fragments of each fused Mamba kernel's launches (kernel 2's
@@ -553,6 +618,70 @@ def phase1_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
         print(f"phase1 mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         del xz, x, w, dout, out, live
+    return fwd, bwd
+
+
+# kernel-name fragments of the tap-conv kernels' launches: the forward, and
+# the backward's dfeat part (dtap, its scatter, dy) and dkernel part
+TAP_FWD_KERNELS = ("tap_conv_kernel",)
+TAP_BWD_GROUPS = {"dfeat": ("tap_dfeat",), "dkernel": ("tap_dkernel",)}
+
+
+def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
+    """Kernels 3 and 4 alone at every shape that a train step gives them
+    (from `tap_step_shapes`): kernel 3 as a forward-only call of `tap_conv`
+    under `torch.no_grad()`, kernel 4 as `torch.autograd.grad` through it,
+    rows reaching past both edges as in phase 1; each the mean of 3 calls
+    after one (`ms`, CUDA events, host included) and the device time of its
+    kernels in 3 more (`kernel_ms`; kernel 4's also split into its dfeat and
+    dkernel parts). Random inputs made on the card. Timing only: the
+    comparisons are phase 1's. The first shape's lines also carry every
+    device operation of one call (`call_ops`: the wrapper's own launches
+    beside the kernels'). Returns (forward, backward) records."""
+    from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+
+    dev = torch.device("cuda")
+    cgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=cgen, device=dev) * scale
+
+    fwd, bwd = [], []
+    for i, ((B, H, W, C, F, K, dt), calls) in enumerate(sorted(shapes.items())):
+        dtype = getattr(torch, dt)
+        rows = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None, None]
+        inputs = [rn(B, H, W, C).to(dtype), rows + rn(B, H, W, K, scale=2.0),
+                  rn(K, 1, C, F, scale=(K * C) ** -0.5), rn(F, scale=0.1)]
+        shifts = [j - K // 2 for j in range(K)]
+        shape = dict(B=B, H=H, W=W, C=C, F=F, K=K, dtype=dt)
+        call = lambda: tap_conv(*inputs, shifts)  # noqa: E731
+        with torch.no_grad():
+            ms = cuda_ms(call, reps=3)
+            kms = kernel_device_ms(call, TAP_FWD_KERNELS)
+            ops = call_device_ops(call) if i == 0 else None
+        work = tap_work(B, H, W, C, F, K, inputs[0].element_size(), False)
+        bms, by = bound(*work)
+        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by,
+                   bound_ms_f32_reckoning=f32_reckoning(*work), launches_per_step=calls,
+                   **({"call_ops": ops} if ops else {}))
+        print(f"phase1 tap_conv_fwd_step {json.dumps(rec)}", flush=True)
+        fwd.append(rec)
+
+        dout = rn(B, H, W, F).to(dtype)
+        out, live, _ = grads_of(lambda *a: tap_conv(*a, shifts), inputs, dout)
+        call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
+        ms = cuda_ms(call, reps=3)
+        parts = kernel_device_ms_by(call, TAP_BWD_GROUPS)
+        ops = call_device_ops(call) if i == 0 else None
+        work = tap_work(B, H, W, C, F, K, dout.element_size(), True)
+        bms, by = bound(*work)
+        rec = dict(shape, ms=ms, kernel_ms=sum(parts.values()), dfeat_kernel_ms=parts["dfeat"],
+                   dkernel_kernel_ms=parts["dkernel"], bound_ms=bms, bound_by=by,
+                   bound_ms_f32_reckoning=f32_reckoning(*work), launches_per_step=calls,
+                   **({"call_ops": ops} if ops else {}))
+        print(f"phase1 tap_conv_bwd_step {json.dumps(rec)}", flush=True)
+        bwd.append(rec)
+        del inputs, dout, out, live
     return fwd, bwd
 
 
@@ -768,8 +897,9 @@ def phase3_serving(seed: int, profile: bool = False) -> dict:
 
 def phase4_training(seed: int, profile: bool = False) -> tuple[dict, dict]:
     """Train steps of the full-width bf16 MM_Net at 512² batch 8. Returns
-    each kernel's launches over the run (forward and backward) and the
-    fused scans' shapes in one step (`mamba_step_shapes`)."""
+    each kernel's launches over the run (forward and backward), the fused
+    scans' shapes in one step (`mamba_step_shapes`) and the tap-conv's
+    (`tap_step_shapes`)."""
     from mm_unet_tpu_torch.data import synthetic_batch
     from mm_unet_tpu_torch.models import give_model
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
@@ -802,10 +932,11 @@ def phase4_training(seed: int, profile: bool = False) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     losses, times, counts_ok = [], [], True
     shapes, hooks = mamba_step_shapes(model)
+    tap_shapes, tap_hooks = tap_step_shapes(model)
     for i in range(TRAIN_STEPS):
         loss, dt, got = step()
         if i == 0:  # the shapes of one step
-            for h in hooks:
+            for h in hooks + tap_hooks:
                 h.remove()
         losses.append(loss)
         times.append(dt)
@@ -818,12 +949,14 @@ def phase4_training(seed: int, profile: bool = False) -> tuple[dict, dict]:
     model.remat = True
     loss_r, dt_r, got_r = step()
     expect_r = model.kernel_launches_per_train_step()
-    shapes_ok = sum(shapes.values()) == expect["mamba_fused_scan"]["bwd"]
+    shapes_ok = (sum(shapes.values()) == expect["mamba_fused_scan"]["bwd"]
+                 and sum(tap_shapes.values()) == expect["tap_conv"]["bwd"])
     ok = (all(np.isfinite(losses)) and np.isfinite(loss_r) and losses[-1] < losses[0]
           and counts_ok and got_r == expect_r and state.step == TRAIN_STEPS + 1 and shapes_ok)
     print("phase4 train " + json.dumps(dict(
         batch=8, size=512, dtype="bfloat16", losses=losses, launches_per_step=expect,
-        mamba_shapes=len(shapes), mamba_shapes_cover_launches=shapes_ok,
+        mamba_shapes=len(shapes), tap_conv_shapes=len(tap_shapes),
+        shapes_cover_launches=shapes_ok,
         counts_ok=counts_ok, remat_step=dict(loss=loss_r, seconds=dt_r, launches=got_r,
                                              expected=expect_r),
         step_seconds=times, train_images_per_sec=rate, max_memory_allocated_bytes=peak,
@@ -833,7 +966,7 @@ def phase4_training(seed: int, profile: bool = False) -> tuple[dict, dict]:
     if profile:
         model.remat = False
         profile_step("train", lambda: train_step(state, x, y, loss_fn))
-    return totals, shapes
+    return totals, shapes, tap_shapes
 
 
 def phase5_dkdualnet(seed: int) -> None:
@@ -1202,9 +1335,10 @@ def main() -> None:
     phase2_model(args.seed)
     phase2_gradients(args.seed)
     serve = phase3_serving(args.seed, args.profile)
-    train, shapes = phase4_training(args.seed, args.profile)
+    train, shapes, tap_shapes = phase4_training(args.seed, args.profile)
     print(f"phases 2-4 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     fwd_steps, bwd_steps = phase1_step_shapes(shapes, args.seed)
+    tap_fwd_steps, tap_bwd_steps = phase1_tap_step_shapes(tap_shapes, args.seed)
     print(f"phase1 step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase5_dkdualnet(args.seed)
     dk = phase6_dkdualnet_path(args.seed, args.profile)
@@ -1233,13 +1367,14 @@ def main() -> None:
                 "library_ms": None,  # no single PyTorch call computes this function
                 "timed": "sum over the phase-1 bf16 shapes"}
 
-    def step_sums(steps):
+    def step_sums(steps, keys=("D", "L", "reverse"), extra=()):
         # per MM_Net train step: each shape's time and bound times its launches
-        return {**{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps)
-                   for k in ("ms", "kernel_ms", "bound_ms")},
-                "step_shapes": [{k: r[k] for k in ("D", "L", "reverse", "ms", "kernel_ms",
-                                                   "bound_ms", "launches_per_step")}
+        sums = ("ms", "kernel_ms", "bound_ms", *extra)
+        return {**{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps) for k in sums},
+                "step_shapes": [{k: r[k] for k in (*keys, *sums, "launches_per_step")}
                                 for r in steps]}
+
+    tap_keys = ("H", "W", "C", "F", "K")
 
     mm = {"serve": serve, "train": train}
     print(smi(), flush=True)
@@ -1249,9 +1384,12 @@ def main() -> None:
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps)),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
-                "mm_unet_tpu/ops/tap_conv.py:110", mm),
+                "mm_unet_tpu/ops/tap_conv.py:110", mm,
+                **step_sums(tap_fwd_steps, tap_keys, ("bound_ms_f32_reckoning",))),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",
-                "mm_unet_tpu/ops/tap_conv.py:133", mm),
+                "mm_unet_tpu/ops/tap_conv.py:133", mm,
+                **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms",
+                                                      "bound_ms_f32_reckoning"))),
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128"),
