@@ -34,7 +34,11 @@ any failure ends the run non-zero):
    fused Mamba forward and backward alone at every shape one of those
    steps gave them (read by forward hooks on the Mambas), with their bounds
    and launches per step (`phase1 mamba_fused_scan_fwd_step` and
-   `phase1 mamba_fused_scan_bwd_step` lines);
+   `phase1 mamba_fused_scan_bwd_step` lines), and the tap-conv forward and
+   backward likewise (hooks on the MMConvs; `phase1 tap_conv_fwd_step` and
+   `phase1 tap_conv_bwd_step` lines, the backward split into its dfeat and
+   dkernel kernels, the first shape's lines with every device operation
+   of one call);
 5. dkDualNet at full width, f32, the same weights on both of its Mambas'
    routes (a: the fused-scan megakernels; b: the grouped selective scan):
    eval logits at 8x3x512² and every parameter gradient of one train-mode
@@ -516,21 +520,28 @@ def kernel_device_ms_by(fn, groups: dict, reps: int = 3) -> dict:
     return ms
 
 
-def call_device_ops(fn) -> dict:
+def call_device_ops(fn, reps: int = 3) -> dict:
     """Every operation one call of fn() (already warm) puts on the device,
-    by torch.profiler: kernels, memsets and copies, the kernel wrapper's
-    own PyTorch launches included ({"launches": n, "device_ms": t,
-    "names": {name: count}})."""
+    by torch.profiler over `reps` calls: kernels, memsets and copies, the
+    kernel wrapper's own PyTorch launches included ({"launches": n per
+    call, "device_ms": t per call, "names": {name: launches per call}}). A
+    window that recorded fewer than `reps` launches of some operation is
+    profiled again (up to three windows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"launches": sum(e.count for e in events),
-            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
-            "names": {e.key[:60]: e.count for e in events}}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(e.count % reps == 0 for e in events):
+            break
+    return {"launches": sum(e.count for e in events) / reps,
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            "names": {e.key[:60]: e.count / reps for e in events}}
 
 
 def tap_step_shapes(model) -> tuple[dict, list]:

@@ -46,8 +46,9 @@ _SIGNATURES = {
     "mamba_fused_bwd": [VP] * 20 + [I32] * 11 + [VP],
     # feat, y, kernel, bias, shifts, out, B, H, W, C, F, K, is_bf16, stream
     "tap_conv_fwd": [VP] * 6 + [I32] * 7 + [VP],
-    # feat, y, kernel, shifts, dout, dfeat, dy, p_dk, B, H, W, C, F, K, ms, is_bf16, stream
-    "tap_conv_bwd": [VP] * 8 + [I32] * 8 + [VP],
+    # feat, y, kernel, shifts, dout, dfeat, dy, dk, db, p_dk, p_db, B, H, W, C, F, K, ms,
+    # is_bf16, stream
+    "tap_conv_bwd": [VP] * 11 + [I32] * 8 + [VP],
     # u, delta, z, B, C, A, bias, D, out, state, dtsum, last, bc_strides (int64[8]),
     # b_gdiv, c_gdiv, b_var, c_var, B, Dm, L, N, T, span, chans, softplus, is_bf16,
     # bc_bf16, stream

@@ -9,23 +9,33 @@ namespace mmu {
 
 constexpr int kMaxTaps = 9;
 
+struct TapRows {
+  int lo, hi;   // source rows lo and lo + 1 (clipped to H - 1)
+  float frac;   // lerp weight of row hi
+  bool inside;  // y within [0, H-1]: the clip passes its gradient only there
+};
+
+// yc = clip(y, 0, H-1), lo = clip(floor(yc), 0, H-2), frac = yc - lo
+__device__ __forceinline__ TapRows tap_rows(float yv, int H) {
+  const float yc = fminf(fmaxf(yv, 0.f), (float)(H - 1));
+  const float lo = fminf(fmaxf(floorf(yc), 0.f), (float)max(H - 2, 0));
+  const int lo_i = (int)lo;
+  return {lo_i, min(lo_i + 1, H - 1), yc - lo, yv >= 0.f && yv <= (float)(H - 1)};
+}
+
 struct TapSource {
   int lo, hi;   // element offsets of rows lo and lo + 1 at column clamp(w + shift)
   float frac;   // lerp weight of row lo + 1
-  bool inside;  // y within [0, H-1]: the clip passes its gradient only there
+  bool inside;  // y within [0, H-1]
 };
 
 // pixel m = (b * H + h) * W + w of an NHWC map with C channels; y (M, K) f32
 __device__ __forceinline__ TapSource tap_source(const float* y, int m, int j, int K, int H,
                                                 int W, int C, int shift) {
   const int w = m % W, b = m / W / H;
-  const float yv = y[(size_t)m * K + j];
-  const float yc = fminf(fmaxf(yv, 0.f), (float)(H - 1));
-  const float lo = fminf(fmaxf(floorf(yc), 0.f), (float)max(H - 2, 0));
-  const int lo_i = (int)lo, hi_i = min(lo_i + 1, H - 1);
+  const TapRows r = tap_rows(y[(size_t)m * K + j], H);
   const int wc = min(max(w + shift, 0), W - 1);
-  return {((b * H + lo_i) * W + wc) * C, ((b * H + hi_i) * W + wc) * C, yc - lo,
-          yv >= 0.f && yv <= (float)(H - 1)};
+  return {((b * H + r.lo) * W + wc) * C, ((b * H + r.hi) * W + wc) * C, r.frac, r.inside};
 }
 
 }  // namespace mmu

@@ -92,12 +92,13 @@ def _launch_fwd(feat, yc, kb, bias, shifts):
 
 # the backward kernel's dkernel tile (K*C rows x features), as it dispatches
 def _dkernel_tile(f: int) -> tuple[int, int]:
-    return (128, 16) if f <= 16 else (64, 64)
+    return (128, 16) if f <= 16 else (128, 32) if f <= 32 else (64, 64)
 
 
 def _launch_bwd(dout, feat, yc, kb, shifts):
-    """(dfeat f32, dy f32, dkernel (K*C, F) f32): the backward kernel, with
-    dkernel summed over its per-slice partials."""
+    """(dfeat in the stream dtype, dy f32, dkernel (K*C, F) f32, dbias f32):
+    the backward kernels, which also sum dkernel's per-slice partials and
+    dbias; kb is the kernel (K*C, F) in the stream dtype."""
     from mm_unet_tpu_torch import _build
 
     b, h, w, c = feat.shape
@@ -108,21 +109,22 @@ def _launch_bwd(dout, feat, yc, kb, shifts):
     tiles = -(-(k * c) // bm) * -(-f // bn)
     splits = max(1, min(-(-m // 256), -(-528 // tiles)))
     per_split = -(-m // splits)
-    ms = -(-per_split // 16) * 16  # a whole number of the kernel's 16-pixel steps
+    ms = -(-per_split // 32) * 32  # a whole number of the kernel's 32-pixel steps
     splits = -(-m // ms)
     dout = dout.to(feat.dtype).contiguous()
-    dfeat = torch.zeros(b, h, w, c, device=dev)
-    dy = torch.zeros(b, h, w, k, device=dev)
-    p_dk = torch.empty(splits, k * c, f, device=dev)
+    dfeat = torch.empty_like(feat)
+    dy = torch.empty(b, h, w, k, device=dev)
+    dk, db = torch.empty(k * c, f, device=dev), torch.empty(f, device=dev)
+    p_dk, p_db = torch.empty(splits, k * c, f, device=dev), torch.empty(splits, f, device=dev)
     err = _build.library().tap_conv_bwd(
         feat.data_ptr(), yc.data_ptr(), kb.data_ptr(), ctypes.addressof(shifts),
-        dout.data_ptr(), dfeat.data_ptr(), dy.data_ptr(), p_dk.data_ptr(),
-        b, h, w, c, f, k, ms, int(feat.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        dout.data_ptr(), dfeat.data_ptr(), dy.data_ptr(), dk.data_ptr(), db.data_ptr(),
+        p_dk.data_ptr(), p_db.data_ptr(), b, h, w, c, f, k, ms,
+        int(feat.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "tap_conv_bwd")
     tap_conv.bwd_launches += 1
-    return dfeat, dy, p_dk.sum(0)
+    return dfeat, dy, dk, db
 
 
 class _TapConvFn(torch.autograd.Function):
@@ -134,7 +136,7 @@ class _TapConvFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, y_coords, kernel, bias, x_shifts):
         feat_c, yc, kb, bs, shifts = _prepare(feat, y_coords, kernel, bias, x_shifts)
-        ctx.save_for_backward(feat_c, yc, kb)
+        ctx.save_for_backward(feat_c, yc, kb.to(feat.dtype))
         ctx.shifts, ctx.kernel_shape = shifts, kernel.shape
         ctx.dtypes = (y_coords.dtype, kernel.dtype, bias.dtype)
         return _launch_fwd(feat_c, yc, kb, bs, shifts)
@@ -142,10 +144,9 @@ class _TapConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         feat, yc, kb = ctx.saved_tensors
-        dfeat, dy, dk = _launch_bwd(dout, feat, yc, kb, ctx.shifts)
+        dfeat, dy, dk, dbias = _launch_bwd(dout, feat, yc, kb, ctx.shifts)
         y_dtype, k_dtype, b_dtype = ctx.dtypes
-        dbias = dout.float().sum((0, 1, 2))
-        return (dfeat.to(feat.dtype), dy.to(y_dtype), dk.reshape(ctx.kernel_shape).to(k_dtype),
+        return (dfeat, dy.to(y_dtype), dk.reshape(ctx.kernel_shape).to(k_dtype),
                 dbias.to(b_dtype), None)
 
 

@@ -7,8 +7,9 @@ runs on its own:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 The shapes are small but cut the sequence into several chunks (so the chunk
-combine of the scans runs) and take both tile shapes of the tap-conv kernel
-(F <= 16 and wider); the selective scan takes every layout and flag it has. Tolerance, as max |kernel - plain| <= tol * (1 + max
+combine of the scans runs) and take every tile shape of the tap-conv
+kernels (F <= 16, <= 32 and wider) and the edges of their design
+(`TAP_EDGES`); the selective scan takes every layout and flag it has. Tolerance, as max |kernel - plain| <= tol * (1 + max
 |plain|): f32 2e-4 (summation order only), bf16 1.6e-2 (two bf16 ulps: an
 f32 sum on a rounding boundary may round the other way).
 """
@@ -68,22 +69,48 @@ def test_mamba_fused_kernel_matches_plain(D, R, N, L, reverse, dtype):
     _close(got, mamba_fused_scan_ref(xz, *args, reverse=reverse), dtype)
 
 
+# The tap-conv kernels' edges, as (H, W, C, F, K, rows): a map tall enough
+# that the backward's dfeat strip takes dynamic shared memory past 48 KB
+# (256 rows x 16 channels) with W not a multiple of the strip; rows far
+# outside the map (all clipped) and rows exactly on integers (and on both
+# edges); C = 20, not a multiple of the 16-byte loads' 8 bf16 channels; F =
+# 16 and 512; K = 1; a single-row map. "near" rows are the pixel's own row
+# plus 2 N(0, 1), past both edges.
+TAP_EDGES = [
+    (256, 37, 16, 16, 3, "near"),
+    (20, 29, 20, 24, 3, "far"),
+    (12, 13, 16, 512, 3, "integer"),
+    (9, 11, 24, 16, 1, "integer"),
+    (1, 19, 16, 16, 3, "near"),
+]
+
+
+def _tap_rows(rng, dev, b, h, w, k, rows):
+    base = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
+    if rows == "far":
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], (b, h, w, k)).astype(np.float32))
+        return base + 40.0 * sign.to(dev)
+    if rows == "integer":
+        return torch.from_numpy(rng.integers(-2, h + 2, (b, h, w, k)).astype(np.float32)).to(dev)
+    return base + 2.0 * torch.from_numpy(rng.standard_normal((b, h, w, k)).astype(np.float32)).to(dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw,C,F,K", [(24, 64, 64, 3), (16, 32, 16, 3), (16, 128, 64, 1)])
-def test_tap_conv_kernel_matches_plain(hw, C, F, K, dtype):
+@pytest.mark.parametrize("H,W,C,F,K,rows", [(24, 24, 64, 64, 3, "near"), (16, 16, 32, 16, 3, "near"),
+                                            (16, 16, 128, 64, 1, "near"), *TAP_EDGES])
+def test_tap_conv_kernel_matches_plain(H, W, C, F, K, rows, dtype):
     dev = _device()
-    rng = np.random.default_rng(hw * C + K)
+    rng = np.random.default_rng(H * C + K + F)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
-    feat = f(2, hw, hw, C).to(dtype)
-    rows = torch.arange(hw, dtype=torch.float32, device=dev)[None, :, None, None]
-    y = rows + 2.0 * f(2, hw, hw, K)  # reaches past both edges
+    feat = f(2, H, W, C).to(dtype)
+    y = _tap_rows(rng, dev, 2, H, W, K, rows)
     kernel, bias = f(K, 1, C, F) * (K * C) ** -0.5, f(F) * 0.1
     shifts = [j - K // 2 for j in range(K)]
     before = tap_conv.launches
     got = tap_conv(feat, y, kernel, bias, shifts)
     assert tap_conv.launches == before + 1
-    assert got.shape == (2, hw, hw, F) and got.dtype == dtype and got.is_cuda
+    assert got.shape == (2, H, W, F) and got.dtype == dtype and got.is_cuda
     _close(got, tap_conv_ref(feat, y, kernel, bias, shifts), dtype)
 
 
@@ -164,19 +191,20 @@ def test_mamba_fused_backward_without_conv_bias():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw,C,F,K", [(24, 64, 64, 3), (16, 32, 16, 3), (16, 128, 64, 1),
-                                      (1, 8, 24, 3)])
-def test_tap_conv_backward_matches_plain(hw, C, F, K, dtype):
-    """Both dkernel tile shapes (F <= 16 and wider), K = 1 and 3, coordinates
-    past both edges, and a single-row map (no row to interpolate towards)."""
+@pytest.mark.parametrize("H,W,C,F,K,rows", [(24, 31, 64, 64, 3, "near"), (16, 23, 32, 16, 3, "near"),
+                                            (16, 23, 128, 64, 1, "near"), (1, 8, 8, 24, 3, "near"),
+                                            *TAP_EDGES])
+def test_tap_conv_backward_matches_plain(H, W, C, F, K, rows, dtype):
+    """Every dkernel tile shape (F <= 16, <= 32 and wider), K = 1 and 3,
+    coordinates past both edges, a single-row map (no row to interpolate
+    towards), and the edges of TAP_EDGES."""
     dev = _device()
-    rng = np.random.default_rng(hw * C + K + 1)
+    rng = np.random.default_rng(H * C + K + F + 1)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
-    feat = f(2, hw, hw + 7, C).to(dtype)
-    rows = torch.arange(hw, dtype=torch.float32, device=dev)[None, :, None, None]
-    y = rows + 2.0 * f(2, hw, hw + 7, K)
+    feat = f(2, H, W, C).to(dtype)
+    y = _tap_rows(rng, dev, 2, H, W, K, rows)
     args = [feat, y, f(K, 1, C, F) * (K * C) ** -0.5, f(F) * 0.1]
-    dout = f(2, hw, hw + 7, F).to(dtype)
+    dout = f(2, H, W, F).to(dtype)
     shifts = [j - K // 2 for j in range(K)]
     before = tap_conv.bwd_launches
     got = _grads(lambda *a: tap_conv(*a, shifts), args, dout)
