@@ -16,35 +16,45 @@
 // What bounds it on the H100: at tensor-core rates every MMConv shape of
 // MM_Net is bound by its bytes (feat, dout in; dfeat out), or within 1.5x of
 // them. What stood in the way was the dfeat scatter: two f32 global atomics
-// per (pixel, tap, channel), 201 M at the 256² side-output shape (B = 8,
-// C = 64, F = 16, K = 3) and ~1.23 G per train step. The TPU kernel avoids
-// it by keeping dfeat for its tile of columns over all source rows in VMEM.
-// Here the same idea is sized for shared memory:
+// per (pixel, tap, channel), 201 M per call at the 256² side-output shape
+// (B = 8, C = 64, F = 16, K = 3) and ~1.23 G per train step. The TPU kernel
+// avoids it by keeping dfeat for its tile of columns over all source rows
+// in VMEM. Here the same idea is sized for shared memory:
 //
 // - tap_dfeat_kernel: a block owns a strip of TW output columns of dfeat
 //   and a slice of 16 channels, over every row of one image, in shared
-//   memory (H x TW x 17 floats; TW from H so that two blocks fit an SM). It
+//   memory (H x TW x 20 floats; TW from H so that two blocks fit an SM). It
 //   walks every pixel whose taps can land in its strip (its columns and
-//   max|shift| columns either side, all rows), computes dtap for its 16
-//   channels ((pixels x F) . (F x K*16), 16-deep warp steps on the tensor
-//   cores for bf16) and adds each value's two lerp shares into the strip
-//   with shared atomics, whatever the row: the sum is exact for any
-//   coordinates. The strip then goes to dfeat once, in the stream dtype,
-//   with plain 16-byte stores: every element of dfeat belongs to one block,
-//   so it needs no zero fill, no global atomics and no cast pass. The halo
+//   max|shift| columns either side, all rows), 128 at a time, computes dtap
+//   for its 16 channels ((pixels x F) . (F x K*16), 16-deep warp steps, on
+//   the tensor cores for bf16) and adds each value's two lerp shares into
+//   the strip, whatever the row: the sum is exact for any coordinates. The
+//   adds are 128-bit compare-and-swaps on shared memory, four channels each
+//   (lanes t and t ^ 1 trade channel pairs first): sm_90 has no native
+//   float add on shared memory, and per float the loop cost four times as
+//   much. The strip then goes to dfeat once, in the stream dtype, with
+//   plain 16-byte stores: every element of dfeat belongs to one block, so
+//   it needs no zero fill, no global atomics and no cast pass. The halo
 //   pixels' products are computed by both neighbours ((TW + 2 S) / TW of
-//   the product). dy is summed over the slice's channels in registers and
-//   added once per (pixel, tap, slice) to a dy zeroed by cudaMemsetAsync.
-//   At the 256² side output (TW = 4, 4 slices) that is 6.3 M scalar global
-//   atomics for dy and none for dfeat, against 201 M + 1.6 M before.
+//   the product). dy is summed over the slice's channels in registers (its
+//   source rows loaded before the product) and added once per (pixel, tap,
+//   slice) to a dy zeroed by cudaMemsetAsync. At the 256² side output (TW =
+//   4, 4 slices) a call makes 6.3 M scalar global atomics, all for dy, and
+//   none for dfeat, against 201 M + 4.7 M before; the strip takes 50 M
+//   shared 128-bit compare-and-swaps. A layout with one pixel column per
+//   warp and plain shared adds (taps in turn, lanes meeting in one cell
+//   taking turns) measured slower on the H100: its tiles leave warps idle
+//   and serialise the taps.
 // - tap_dkernel_kernel: dkernel's (K*C x M) . (M x F) product over one
-//   slice of pixels per block (A the gathered, rounded taps), written as
-//   per-slice partials; the blocks of the first K*C tile also sum dout for
-//   dbias. tap_dkernel_reduce_kernel sums the partials: both launched here,
-//   so the wrapper does no reduction of its own.
+//   slice of pixels per block (A the gathered, rounded taps, by 16-byte
+//   loads; dout by cp.async, both double-buffered), written as per-slice
+//   partials; the blocks of the first K*C tile also sum dout for dbias.
+//   tap_dkernel_reduce_kernel sums the partials: both launched here, so the
+//   wrapper does no reduction of its own.
 #include <algorithm>
 #include <cstdint>
 #include <cstdlib>
+#include <type_traits>
 
 #include "common.cuh"
 #include "tap_geometry.cuh"
@@ -56,12 +66,12 @@ using mmu::kMaxTaps;
 using mmu::tile_elems;
 using mmu::tile_idx;
 constexpr int kCB = 16;             // channels of a dfeat block's slice
-constexpr int kStripPad = kCB + 1;  // floats per (row, column) cell of the strip
+constexpr int kStripPad = kCB + 4;  // floats per (row, column) cell: 16-byte aligned
 constexpr int kPT = 128;            // pixels per dtap tile: 8 warps x 16
 constexpr int kFK = 32;             // features per dtap reduction step
 constexpr int kDfeatThreads = 256;
 constexpr int kBK = 32;             // pixels per dkernel reduction step
-constexpr bool kTapTensorCores = false;  // bf16 products on the tensor cores
+constexpr bool kTapTensorCores = true;   // bf16 products on the tensor cores
 
 struct TapBwdArgs {
   const void* feat;   // (B, H, W, C) stream dtype
@@ -79,6 +89,48 @@ struct TapBwdArgs {
   int tw, halo;  // dfeat strip width and max |shift|
 };
 
+// the two floats packed in v (low word first), plus a and b
+__device__ __forceinline__ unsigned long long add_packed(unsigned long long v, float a, float b) {
+  const float lo = __uint_as_float(static_cast<unsigned>(v)) + a;
+  const float hi = __uint_as_float(static_cast<unsigned>(v >> 32)) + b;
+  return static_cast<unsigned long long>(__float_as_uint(lo)) |
+         (static_cast<unsigned long long>(__float_as_uint(hi)) << 32);
+}
+
+// p[0..3] += d on four floats of shared memory (16-byte aligned) by a
+// 128-bit compare-and-swap loop: a float atomicAdd on shared memory is a
+// compare-and-swap loop per float, so four at a time cost a quarter
+__device__ __forceinline__ void add4_cas(float* p, float4 d) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned long long lo = *reinterpret_cast<const unsigned long long*>(p);
+  unsigned long long hi = *reinterpret_cast<const unsigned long long*>(p + 2);
+  while (true) {
+    const unsigned long long nlo = add_packed(lo, d.x, d.y), nhi = add_packed(hi, d.z, d.w);
+    unsigned long long olo, ohi;
+    asm volatile(
+        "{\n\t.reg .b128 cmp, val, res;\n\t"
+        "mov.b128 cmp, {%2, %3};\n\t"
+        "mov.b128 val, {%4, %5};\n\t"
+        "atom.shared.cas.b128 res, [%6], cmp, val;\n\t"
+        "mov.b128 {%0, %1}, res;\n\t}"
+        : "=l"(olo), "=l"(ohi)
+        : "l"(lo), "l"(hi), "l"(nlo), "l"(nhi), "r"(s)
+        : "memory");
+    if (olo == lo && ohi == hi) return;
+    lo = olo;
+    hi = ohi;
+  }
+}
+
+// two consecutive stream-dtype values as f32; p aligned to two of them
+template <typename T> __device__ __forceinline__ float2 load2(const T* p);
+template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 template <typename TI>
 __host__ __device__ constexpr size_t dfeat_fixed_smem(int kt) {
   return (2 * (size_t)tile_elems<TI>(kPT, kFK) + 2 * (size_t)tile_elems<TI>(kt * kCB, kFK)) *
@@ -88,8 +140,10 @@ __host__ __device__ constexpr size_t dfeat_fixed_smem(int kt) {
 
 // dfeat strip of one (image, TW columns, 16 channels); see the note above
 template <typename TI, int KT, bool VEC, bool TC>
-__global__ void __launch_bounds__(kDfeatThreads) tap_dfeat_kernel(TapBwdArgs a) {
+__global__ void __launch_bounds__(kDfeatThreads, 2) tap_dfeat_kernel(TapBwdArgs a) {
   constexpr int V = mmu::Vec16<TI>::V;
+  // dy's source rows prefetched into registers (bf16 pairs, up to 3 taps)
+  constexpr bool PF = VEC && KT <= 3 && std::is_same<TI, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   TI* Ds = reinterpret_cast<TI*>(smem);           // [2][kPT][kFK] dout
   TI* Ks = Ds + 2 * tile_elems<TI>(kPT, kFK);     // [2][KT*kCB][kFK] kernel rows j*C + c0 + cc
@@ -156,7 +210,7 @@ __global__ void __launch_bounds__(kDfeatThreads) tap_dfeat_kernel(TapBwdArgs a) 
       if (p < npx) {
         const int h = p / PW, w = wb + p - h * PW, m = (b * H + h) * W + w;
         const mmu::TapRows rw = mmu::tap_rows(a.y[(size_t)m * K + j], H);
-        const int wc = min(max(w + a.shifts[j], 0), W - 1), dc = wc - w0;
+        const int wc = min(max(w + mmu::tap_shift(a.shifts, j), 0), W - 1), dc = wc - w0;
         fr = rw.frac;
         if (dc >= 0 && dc < TW) {
           clo = (rw.lo * TW + dc) * kStripPad;
@@ -185,11 +239,32 @@ __global__ void __launch_bounds__(kDfeatThreads) tap_dfeat_kernel(TapBwdArgs a) 
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][0][nt][e] = 0.f;
 
+    // dy's source rows for this lane's pixels and channels (bf16 pairs),
+    // loaded before the product so that their latency overlaps it
+    unsigned rlo[PF ? KT : 1][2][2], rhi[PF ? KT : 1][2][2];
+    auto prefetch = [&]() {
+#pragma unroll
+      for (int j = 0; j < (PF ? KT : 0); ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int s = (warp * 16 + g + half * 8) * K + j;
+          const int slo = j < K ? g_slo[s] : -1, shi = j < K ? g_shi[s] : -1;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int c = c0 + nt * 8 + 2 * t;
+            const bool ok = slo >= 0 && c < C;
+            rlo[j][half][nt] = ok ? *reinterpret_cast<const unsigned*>(feat + slo + c) : 0u;
+            rhi[j][half][nt] = ok ? *reinterpret_cast<const unsigned*>(feat + shi + c) : 0u;
+          }
+        }
+    };
+
     load(0, p0, 0);
     for (int f0 = 0, it = 0; f0 < F; f0 += kFK, ++it) {
       const int buf = it & 1;
       mmu::cp_async_wait_all();
       __syncthreads();  // tiles `buf` in place; every warp done with `buf ^ 1`
+      if (PF && it == 0) prefetch();  // the geometry is visible from here
       if (f0 + kFK < F) load(buf ^ 1, p0, f0 + kFK);
       const TI* ds = Ds + buf * tile_elems<TI>(kPT, kFK);
       const TI* ks = Ks + buf * tile_elems<TI>(KT * kCB, kFK);
@@ -212,21 +287,47 @@ __global__ void __launch_bounds__(kDfeatThreads) tap_dfeat_kernel(TapBwdArgs a) 
         const int r = warp * 16 + g + half * 8, s = r * K + j;
         const int clo = g_clo[s], chi = g_chi[s], slo = g_slo[s], shi = g_shi[s];
         const float w1 = g_fr[s];
+        // the lerp shares: lanes t and t ^ 1 (one pixel) trade channel pairs
+        // so that each holds four consecutive channels, one 128-bit
+        // compare-and-swap per row
+        {
+          const float r00 = mmu::round_to<TI>(acc[j][0][0][half * 2]);
+          const float r01 = mmu::round_to<TI>(acc[j][0][0][half * 2 + 1]);
+          const float r10 = mmu::round_to<TI>(acc[j][0][1][half * 2]);
+          const float r11 = mmu::round_to<TI>(acc[j][0][1][half * 2 + 1]);
+          const bool odd = t & 1;
+          const float s0 = __shfl_xor_sync(0xffffffffu, odd ? r00 : r10, 1);
+          const float s1 = __shfl_xor_sync(0xffffffffu, odd ? r01 : r11, 1);
+          const float4 q = odd ? make_float4(s0, s1, r10, r11) : make_float4(r00, r01, s0, s1);
+          const int cq = odd ? 2 * t + 6 : 2 * t;  // first of the four channels
+          if (clo >= 0) {
+            add4_cas(&strip[clo + cq], make_float4((1.f - w1) * q.x, (1.f - w1) * q.y,
+                                                   (1.f - w1) * q.z, (1.f - w1) * q.w));
+            add4_cas(&strip[chi + cq], make_float4(w1 * q.x, w1 * q.y, w1 * q.z, w1 * q.w));
+          }
+        }
         float d = 0.f;
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const int cc = nt * 8 + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = acc[j][0][nt][half * 2 + e];
-            if (clo >= 0) {
-              const float vr = mmu::round_to<TI>(v);
-              atomicAdd(&strip[clo + cc + e], (1.f - w1) * vr);
-              atomicAdd(&strip[chi + cc + e], w1 * vr);
+          const int cc = nt * 8 + 2 * t, c = c0 + cc;  // this lane's channels cc, cc + 1
+          const float v0 = acc[j][0][nt][half * 2], v1 = acc[j][0][nt][half * 2 + 1];
+          if (slo >= 0) {
+            if constexpr (PF) {
+              const float2 lo =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rlo[j][half][nt]));
+              const float2 hi =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rhi[j][half][nt]));
+              d += v0 * (hi.x - lo.x) + v1 * (hi.y - lo.y);
+            } else if constexpr (VEC) {  // C a multiple of 4: c, c + 1 both in range or out
+              if (c < C) {
+                const float2 lo = load2(feat + slo + c), hi = load2(feat + shi + c);
+                d += v0 * (hi.x - lo.x) + v1 * (hi.y - lo.y);
+              }
+            } else {
+              if (c < C) d += v0 * (mmu::to_f32(feat[shi + c]) - mmu::to_f32(feat[slo + c]));
+              if (c + 1 < C)
+                d += v1 * (mmu::to_f32(feat[shi + c + 1]) - mmu::to_f32(feat[slo + c + 1]));
             }
-            const int c = c0 + cc + e;
-            if (slo >= 0 && c < C)
-              d += v * (mmu::to_f32(feat[shi + c]) - mmu::to_f32(feat[slo + c]));
           }
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
@@ -286,7 +387,7 @@ __global__ void __launch_bounds__(WM * WN * 32) tap_dkernel_kernel(TapBwdArgs a)
       int lo_o = -1;
       float fr = 0.f;
       if (m < m_end) {
-        const mmu::TapSource src = mmu::tap_source(a.y, m, j, K, H, W, C, a.shifts[j]);
+        const mmu::TapSource src = mmu::tap_source(a.y, m, j, K, H, W, C, mmu::tap_shift(a.shifts, j));
         lo_o = src.lo;
         fr = src.frac;
       }

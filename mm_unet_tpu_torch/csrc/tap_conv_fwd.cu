@@ -11,137 +11,219 @@
 // output is written in the stream dtype. The (B, H*K, W, C) deformed tensor
 // never exists in device memory.
 //
-// What bounds it on the H100: MM_Net's shapes span two regimes. The k=1
-// reducers and the narrow decoder / side-out convs (K*C = 128..192, F = 16..64)
-// do few operations per gathered byte and are bound by the gather; stage 5
-// (K*C = 1536, F = 512) is a real matrix product and bound by arithmetic.
-// The design is a tiled matrix product whose A operand is gathered: a block
-// owns BM output pixels x BN output features, precomputes each pixel's two
-// source-row offsets and lerp weight per tap once, then walks the K*C
-// reduction in BK-wide slices, gathering and interpolating the A slice into
-// shared memory (consecutive threads read consecutive channels of one NHWC
-// pixel) next to the matching weight slice, and accumulates a TM x TN
-// register tile per thread in f32. Narrow outputs (F <= 16) take a tile
-// shape with BN = 16 so no lanes idle on padding features.
+// What bounds it on the H100: a bf16 stream's products run on the tensor
+// cores (bf16 x bf16 -> f32, 989 TFLOP/s), where every MMConv shape of
+// MM_Net is bound by its bytes (feat and y in, out out) or within 1.5x of
+// them; the largest (stage 5, K*C = 1536, F = 512) is 3.2 GFLOP. So the
+// design feeds the tensor cores from a gather: a block owns BM output
+// pixels x BN features, computes each pixel's two source-row offsets and
+// lerp weight per tap once, then walks the K*C reduction in 32-wide slices.
+// Each slice's A operand (pixels x 32 taps) is gathered with 16-byte loads
+// (8 bf16 channels of one source pixel a thread), lerped in f32, rounded and
+// stored in a swizzled tile that ldmatrix reads without bank conflicts; the
+// kernel's slice (32 x BN, already in the stream dtype) comes by cp.async.
+// Both are double-buffered: the next slice's copy and loads are in flight
+// while the warps run this slice's mma.sync m16n8k16 steps. An f32 stream
+// runs the same tiles on the FMA units (TF32 would break its limits), and a
+// ragged C or F (not a multiple of a 16-byte load) gathers element by
+// element.
 #include <cstdint>
 
 #include "common.cuh"
 #include "tap_geometry.cuh"
+#include "tap_tile.cuh"
 
 namespace {
 
 using mmu::kMaxTaps;
-constexpr int BK = 16;
+using mmu::tile_elems;
+using mmu::tile_idx;
+constexpr int BK = 32;  // K*C columns per reduction slice
+constexpr bool kTapTensorCores = true;  // bf16 products on the tensor cores
 
 struct TapArgs {
   const void* feat;    // (B, H, W, C) stream dtype
   const float* y;      // (B, H, W, K) f32 row coordinates
-  const float* kern;   // (K*C, F) f32, rounded to the stream dtype
+  const void* kern;    // (K*C, F) stream dtype
   const float* bias;   // (F,)
   void* out;           // (B, H, W, F) stream dtype
   int shifts[kMaxTaps];
   int B, H, W, C, F, K;
 };
 
-template <typename TI, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-tap_conv_kernel(TapArgs a) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  __shared__ float As[BK][BM + 4];  // gathered taps, k-major
-  __shared__ float Bs[BK][BN];
-  __shared__ int lo_off[BM * kMaxTaps];
-  __shared__ int hi_off[BM * kMaxTaps];
-  __shared__ float frac[BM * kMaxTaps];
+template <typename TI, int BM, int BN>
+__host__ __device__ constexpr size_t fwd_smem(int k) {
+  return (2 * (size_t)tile_elems<TI>(BM, BK) + 2 * (size_t)tile_elems<TI>(BK, BN)) * sizeof(TI) +
+         (size_t)BM * k * 8;
+}
+
+template <typename TI, int WM, int WN, int MT, int NT, bool VEC, bool TC>
+__global__ void __launch_bounds__(WM * WN * 32) tap_conv_kernel(TapArgs a) {
+  constexpr int NTH = WM * WN * 32, BM = WM * MT * 16, BN = WN * NT * 8;
+  constexpr int V = mmu::Vec16<TI>::V, CPT = BM * BK / V / NTH;  // A chunks per thread
+  static_assert(CPT * V * NTH == BM * BK, "whole chunks per thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  TI* As = reinterpret_cast<TI*>(smem);        // [2][BM][BK] gathered taps
+  TI* Bs = As + 2 * tile_elems<TI>(BM, BK);    // [2][BK][BN] kernel
+  int* lo_off = reinterpret_cast<int*>(Bs + 2 * tile_elems<TI>(BK, BN));  // -1: no pixel
+  float* frac = reinterpret_cast<float*>(lo_off + BM * a.K);
 
   const int H = a.H, W = a.W, C = a.C, F = a.F, K = a.K;
   const int M = a.B * H * W, KC = K * C;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const TI* feat = static_cast<const TI*>(a.feat);
+  const TI* kern = static_cast<const TI*>(a.kern);
+  const int row = H > 1 ? W * C : 0;  // row hi is one image row past row lo
+  const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
 
-  // per (pixel, tap): element offsets of the two source rows and the weight
-  for (int i = threadIdx.x; i < BM * K; i += NT) {
+  // per (pixel, tap): element offset of source row lo and the lerp weight
+  for (int i = threadIdx.x; i < BM * K; i += NTH) {
     const int r = i / K, j = i - r * K, m = m0 + r;
-    int lo_o = -1, hi_o = -1;
+    int lo_o = -1;
     float fr = 0.f;
     if (m < M) {
-      const mmu::TapSource src = mmu::tap_source(a.y, m, j, K, H, W, C, a.shifts[j]);
+      const mmu::TapSource src = mmu::tap_source(a.y, m, j, K, H, W, C, mmu::tap_shift(a.shifts, j));
       lo_o = src.lo;
-      hi_o = src.hi;
       fr = src.frac;
     }
     lo_off[i] = lo_o;
-    hi_off[i] = hi_o;
     frac[i] = fr;
   }
   __syncthreads();
 
-  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
-  float acc[TM][TN];
+  auto load_b = [&](int buf, int k0) {
+    TI* bs = Bs + buf * tile_elems<TI>(BK, BN);
+    if constexpr (VEC) {
+      for (int q = threadIdx.x; q < BK * (BN / V); q += NTH) {
+        const int kk = q / (BN / V), nn = (q % (BN / V)) * V, kc = k0 + kk, f = n0 + nn;
+        const bool ok = kc < KC && f < F;
+        mmu::cp_async16(bs + tile_idx<TI>(kk, nn, BN), ok ? kern + (size_t)kc * F + f : kern, ok);
+      }
+      mmu::cp_async_commit();
+    } else {
+      for (int q = threadIdx.x; q < BK * BN; q += NTH) {
+        const int kk = q / BN, nn = q % BN, kc = k0 + kk, f = n0 + nn;
+        bs[tile_idx<TI>(kk, nn, BN)] =
+            kc < KC && f < F ? kern[(size_t)kc * F + f] : mmu::from_f32<TI>(0.f);
+      }
+    }
+  };
+  // A slice k0..k0 + BK: 16-byte chunks (pixel r, V taps), loads then stores
+  uint4 lo[CPT], hi[CPT];
+  float fr[CPT];
+  auto load_a = [&](int k0) {
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[r][q] = 0.f;
-
-  for (int k0 = 0; k0 < KC; k0 += BK) {
-    // gather + lerp the A slice: consecutive threads, consecutive channels
-    for (int i = threadIdx.x; i < BM * BK; i += NT) {
-      const int r = i / BK, kk = i - r * BK, kc = k0 + kk;
-      float v = 0.f;
+    for (int i = 0; i < CPT; ++i) {
+      const int q = threadIdx.x + i * NTH, r = q / (BK / V), kc = k0 + (q % (BK / V)) * V;
+      fr[i] = -1.f;  // marks a zero chunk
       if (kc < KC) {
         const int j = kc / C, c = kc - j * C, s = r * K + j;
         if (lo_off[s] >= 0) {
-          const float lo = mmu::to_f32(feat[lo_off[s] + c]);
-          const float hi = mmu::to_f32(feat[hi_off[s] + c]);
-          v = mmu::round_to<TI>(lo * (1.f - frac[s]) + hi * frac[s]);
+          lo[i] = *reinterpret_cast<const uint4*>(feat + lo_off[s] + c);
+          hi[i] = *reinterpret_cast<const uint4*>(feat + lo_off[s] + row + c);
+          fr[i] = frac[s];
         }
       }
-      As[kk][r] = v;
     }
-    for (int i = threadIdx.x; i < BK * BN; i += NT) {
-      const int kk = i / BN, nn = i - kk * BN, kc = k0 + kk, f = n0 + nn;
-      Bs[kk][nn] = (kc < KC && f < F) ? a.kern[(size_t)kc * F + f] : 0.f;
+  };
+  auto store_a = [&](int buf) {
+    TI* as = As + buf * tile_elems<TI>(BM, BK);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int q = threadIdx.x + i * NTH, r = q / (BK / V), kk = (q % (BK / V)) * V;
+      *reinterpret_cast<uint4*>(as + tile_idx<TI>(r, kk, BK)) =
+          fr[i] >= 0.f ? mmu::lerp16<TI>(lo[i], hi[i], fr[i]) : make_uint4(0u, 0u, 0u, 0u);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) av[r] = As[kk][ty * TM + r];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) bv[q] = Bs[kk][tx * TN + q];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+  };
+  // ragged C: element by element
+  auto gather_a = [&](int buf, int k0) {
+    TI* as = As + buf * tile_elems<TI>(BM, BK);
+    for (int q = threadIdx.x; q < BM * BK; q += NTH) {
+      const int r = q / BK, kk = q % BK, kc = k0 + kk;
+      float v = 0.f;
+      if (kc < KC) {
+        const int j = kc / C, c = kc - j * C, s = r * K + j;
+        if (lo_off[s] >= 0)
+          v = mmu::to_f32(feat[lo_off[s] + c]) * (1.f - frac[s]) +
+              mmu::to_f32(feat[lo_off[s] + row + c]) * frac[s];
+      }
+      as[tile_idx<TI>(r, kk, BK)] = mmu::from_f32<TI>(v);
     }
-    __syncthreads();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  load_b(0, 0);
+  if constexpr (VEC) {
+    load_a(0);
+    store_a(0);
+  } else {
+    gather_a(0, 0);
+  }
+  const int nk = (KC + BK - 1) / BK;
+  for (int it = 0; it < nk; ++it) {
+    const int buf = it & 1;
+    const bool next = it + 1 < nk;
+    mmu::cp_async_wait_all();
+    __syncthreads();  // slice `buf` in place; every warp done with `buf ^ 1`
+    if (next) {
+      load_b(buf ^ 1, (it + 1) * BK);
+      if constexpr (VEC) load_a((it + 1) * BK);
+      else gather_a(buf ^ 1, (it + 1) * BK);
+    }
+    const TI* as = As + buf * tile_elems<TI>(BM, BK);
+    const TI* bs = Bs + buf * tile_elems<TI>(BK, BN);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16)
+      mmu::warp_mma_step<TI, MT, NT, false, true, TC>(acc, as, BK, bs, BN, wm * MT * 16,
+                                                      wn * NT * 8, kk);
+    if constexpr (VEC) {
+      if (next) store_a(buf ^ 1);
+    }
   }
 
   TI* out = static_cast<TI*>(a.out);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int m = m0 + ty * TM + r;
-    if (m >= M) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int f = n0 + tx * TN + q;
-      if (f < F) out[(size_t)m * F + f] = mmu::from_f32<TI>(acc[r][q] + a.bias[f]);
-    }
-  }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * MT * 16 + mt * 16 + g + (e >> 1) * 8;
+        const int f = n0 + wn * NT * 8 + nt * 8 + 2 * t + (e & 1);
+        if (m < M && f < F) out[(size_t)m * F + f] = mmu::from_f32<TI>(acc[mt][nt][e] + a.bias[f]);
+      }
 }
 
-template <typename TI, int BM, int BN, int TM, int TN>
+template <typename TI, int WM, int WN, int MT, int NT, bool VEC>
 int launch(const TapArgs& a, cudaStream_t stream) {
+  constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
+  constexpr bool TC = kTapTensorCores && std::is_same<TI, __nv_bfloat16>::value;
+  const auto kernel = tap_conv_kernel<TI, WM, WN, MT, NT, VEC, TC>;
+  const size_t smem = fwd_smem<TI, BM, BN>(a.K);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const int M = a.B * a.H * a.W;
-  const dim3 grid((M + BM - 1) / BM, (a.F + BN - 1) / BN);
-  tap_conv_kernel<TI, BM, BN, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(a);
+  kernel<<<dim3((M + BM - 1) / BM, (a.F + BN - 1) / BN), WM * WN * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TI>
+template <typename TI, bool VEC>
 int dispatch(const TapArgs& a, cudaStream_t stream) {
-  if (a.F <= 16) return launch<TI, 128, 16, 8, 1>(a, stream);
-  return launch<TI, 64, 64, 4, 4>(a, stream);
+  // narrow outputs: no lanes idle on padding features
+  if (a.F <= 16) return launch<TI, 4, 1, 2, 2, VEC>(a, stream);
+  if (a.F <= 32) return launch<TI, 4, 1, 2, 4, VEC>(a, stream);
+  return launch<TI, 2, 2, 2, 4, VEC>(a, stream);
 }
 
 }  // namespace
@@ -153,11 +235,17 @@ extern "C" int tap_conv_fwd(const void* feat, const void* y, const void* kern,
   TapArgs a;
   a.feat = feat;
   a.y = static_cast<const float*>(y);
-  a.kern = static_cast<const float*>(kern);
+  a.kern = kern;
   a.bias = static_cast<const float*>(bias);
   a.out = out;
   for (int j = 0; j < K; ++j) a.shifts[j] = static_cast<const int*>(shifts)[j];
   a.B = B; a.H = H; a.W = W; a.C = C; a.F = F; a.K = K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(a, st) : dispatch<float>(a, st);
+  // 16-byte loads: V channels and features at a time, aligned
+  const int V = is_bf16 ? 8 : 4;
+  const bool vec = C % V == 0 && F % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(kern)) & 15) == 0;
+  if (is_bf16)
+    return vec ? dispatch<__nv_bfloat16, true>(a, st) : dispatch<__nv_bfloat16, false>(a, st);
+  return vec ? dispatch<float, true>(a, st) : dispatch<float, false>(a, st);
 }

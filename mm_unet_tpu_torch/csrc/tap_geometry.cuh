@@ -23,6 +23,15 @@ __device__ __forceinline__ TapRows tap_rows(float yv, int H) {
   return {lo_i, min(lo_i + 1, H - 1), yc - lo, yv >= 0.f && yv <= (float)(H - 1)};
 }
 
+// shifts[j] for a j known only at run time, without indexing the kernel's
+// argument array at run time (which copies the arguments to local memory)
+__device__ __forceinline__ int tap_shift(const int (&shifts)[kMaxTaps], int j) {
+  int s = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxTaps; ++q) s = q == j ? shifts[q] : s;
+  return s;
+}
+
 struct TapSource {
   int lo, hi;   // element offsets of rows lo and lo + 1 at column clamp(w + shift)
   float frac;   // lerp weight of row lo + 1
