@@ -71,7 +71,6 @@ constexpr int kPT = 128;            // pixels per dtap tile: 8 warps x 16
 constexpr int kFK = 32;             // features per dtap reduction step
 constexpr int kDfeatThreads = 256;
 constexpr int kBK = 32;             // pixels per dkernel reduction step
-constexpr bool kTapTensorCores = true;   // bf16 products on the tensor cores
 
 struct TapBwdArgs {
   const void* feat;   // (B, H, W, C) stream dtype
@@ -97,9 +96,9 @@ __device__ __forceinline__ unsigned long long add_packed(unsigned long long v, f
          (static_cast<unsigned long long>(__float_as_uint(hi)) << 32);
 }
 
-// p[0..3] += d on four floats of shared memory (16-byte aligned) by a
-// 128-bit compare-and-swap loop: a float atomicAdd on shared memory is a
-// compare-and-swap loop per float, so four at a time cost a quarter
+// p[0..3] += d on four floats of shared memory (16-byte aligned) by one
+// 128-bit compare-and-swap loop, where a float atomicAdd on shared memory
+// is a compare-and-swap loop per float
 __device__ __forceinline__ void add4_cas(float* p, float4 d) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   unsigned long long lo = *reinterpret_cast<const unsigned long long*>(p);
@@ -139,7 +138,7 @@ __host__ __device__ constexpr size_t dfeat_fixed_smem(int kt) {
 }
 
 // dfeat strip of one (image, TW columns, 16 channels); see the note above
-template <typename TI, int KT, bool VEC, bool TC>
+template <typename TI, int KT, bool VEC>
 __global__ void __launch_bounds__(kDfeatThreads, 2) tap_dfeat_kernel(TapBwdArgs a) {
   constexpr int V = mmu::Vec16<TI>::V;
   // dy's source rows prefetched into registers (bf16 pairs, up to 3 taps)
@@ -273,10 +272,9 @@ __global__ void __launch_bounds__(kDfeatThreads, 2) tap_dfeat_kernel(TapBwdArgs 
 #pragma unroll
         for (int j = 0; j < KT; ++j)
           if (j < K)
-            mmu::warp_mma_step<TI, 1, 2, false, false, TC>(acc[j], ds, kFK, ks, kFK, warp * 16,
-                                                           j * kCB, k0);
+            mmu::warp_mma_step<TI, 1, 2, false, false>(acc[j], ds, kFK, ks, kFK, warp * 16,
+                                                       j * kCB, k0);
     }
-    __syncthreads();  // the geometry is visible (written before the first step's barrier too)
 
     // epilogue: each dtap value's two lerp shares into the strip, dy per (pixel, tap)
 #pragma unroll
@@ -362,7 +360,7 @@ __global__ void __launch_bounds__(kDfeatThreads, 2) tap_dfeat_kernel(TapBwdArgs 
 // ms pixels in kBK-pixel steps; A is the forward's gathered, rounded taps,
 // stored pixel-major, B is dout. Tiles double-buffered: the next step's
 // dout by cp.async and its gather are issued before this step's product.
-template <typename TI, int WM, int WN, int MT, int NT, bool VEC, bool TC>
+template <typename TI, int WM, int WN, int MT, int NT, bool VEC>
 __global__ void __launch_bounds__(WM * WN * 32) tap_dkernel_kernel(TapBwdArgs a) {
   constexpr int NTH = WM * WN * 32, BM = WM * MT * 16, BN = WN * NT * 8;
   constexpr int V = mmu::Vec16<TI>::V;
@@ -460,8 +458,8 @@ __global__ void __launch_bounds__(WM * WN * 32) tap_dkernel_kernel(TapBwdArgs a)
     if (next) load(buf ^ 1, buf ^ 1, mb + kBK);
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16)
-      mmu::warp_mma_step<TI, MT, NT, true, true, TC>(acc, As[buf], BM, Bs[buf], BN, wm * MT * 16,
-                                                     wn * NT * 8, kk);
+      mmu::warp_mma_step<TI, MT, NT, true, true>(acc, As[buf], BM, Bs[buf], BN, wm * MT * 16,
+                                                 wn * NT * 8, kk);
     if (sum_db && threadIdx.x < BN)
       for (int mm = 0; mm < kBK; ++mm)
         db_acc += mmu::to_f32(Bs[buf][tile_idx<TI>(mm, threadIdx.x, BN)]);
@@ -497,19 +495,7 @@ __global__ void tap_dkernel_reduce_kernel(TapBwdArgs a) {
   }
 }
 
-template <typename Kern>
-int launch_dyn(Kern kernel, dim3 grid, int threads, size_t smem, const TapBwdArgs& a,
-               cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename TI, int KT, bool VEC, bool TC>
+template <typename TI, int KT, bool VEC>
 int launch_dfeat(TapBwdArgs a, cudaStream_t stream) {
   // strip width: two blocks per SM where the rows allow, else one; at
   // least two blocks per SM in the grid while strips stay 4 wide
@@ -523,29 +509,35 @@ int launch_dfeat(TapBwdArgs a, cudaStream_t stream) {
   const long slices = (a.C + kCB - 1) / kCB;
   while (tw > 4 && (long)a.B * ((a.W + tw - 1) / tw) * slices < 264) tw = (tw + 1) / 2;
   a.tw = (int)tw;
-  const dim3 grid((a.W + a.tw - 1) / a.tw, (unsigned)slices, a.B);
-  return launch_dyn(tap_dfeat_kernel<TI, KT, VEC, TC>, grid, kDfeatThreads,
-                    fixed + (size_t)a.tw * col_bytes, a, stream);
+  const auto kernel = tap_dfeat_kernel<TI, KT, VEC>;
+  const size_t smem = fixed + (size_t)a.tw * col_bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3((a.W + a.tw - 1) / a.tw, (unsigned)slices, a.B), kDfeatThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename TI, bool VEC, bool TC>
+template <typename TI, bool VEC>
 int dispatch(TapBwdArgs a, cudaStream_t stream) {
   const int M = a.B * a.H * a.W, KC = a.K * a.C;
   cudaError_t e = cudaMemsetAsync(a.dy, 0, (size_t)M * a.K * sizeof(float), stream);
   if (e != cudaSuccess) return e;
-  int err = a.K == 1   ? launch_dfeat<TI, 1, VEC, TC>(a, stream)
-            : a.K <= 3 ? launch_dfeat<TI, 3, VEC, TC>(a, stream)
-                       : launch_dfeat<TI, kMaxTaps, VEC, TC>(a, stream);
+  int err = a.K == 1   ? launch_dfeat<TI, 1, VEC>(a, stream)
+            : a.K <= 3 ? launch_dfeat<TI, 3, VEC>(a, stream)
+                       : launch_dfeat<TI, kMaxTaps, VEC>(a, stream);
   if (err) return err;
   const unsigned splits = a.splits;
   if (a.F <= 16) {  // narrow outputs: no lanes idle on padding features
-    tap_dkernel_kernel<TI, 4, 1, 2, 2, VEC, TC>
+    tap_dkernel_kernel<TI, 4, 1, 2, 2, VEC>
         <<<dim3((KC + 127) / 128, (a.F + 15) / 16, splits), 128, 0, stream>>>(a);
   } else if (a.F <= 32) {
-    tap_dkernel_kernel<TI, 4, 1, 2, 4, VEC, TC>
+    tap_dkernel_kernel<TI, 4, 1, 2, 4, VEC>
         <<<dim3((KC + 127) / 128, (a.F + 31) / 32, splits), 128, 0, stream>>>(a);
   } else {
-    tap_dkernel_kernel<TI, 2, 2, 2, 4, VEC, TC>
+    tap_dkernel_kernel<TI, 2, 2, 2, 4, VEC>
         <<<dim3((KC + 63) / 64, (a.F + 63) / 64, splits), 128, 0, stream>>>(a);
   }
   if ((err = cudaGetLastError())) return err;
@@ -590,7 +582,6 @@ extern "C" int tap_conv_bwd(const void* feat, const void* y, const void* kern, c
                      reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dfeat)) &
                     15) == 0;
   if (is_bf16)
-    return vec ? dispatch<__nv_bfloat16, true, kTapTensorCores>(a, st)
-               : dispatch<__nv_bfloat16, false, kTapTensorCores>(a, st);
-  return vec ? dispatch<float, true, false>(a, st) : dispatch<float, false, false>(a, st);
+    return vec ? dispatch<__nv_bfloat16, true>(a, st) : dispatch<__nv_bfloat16, false>(a, st);
+  return vec ? dispatch<float, true>(a, st) : dispatch<float, false>(a, st);
 }

@@ -39,7 +39,6 @@ using mmu::kMaxTaps;
 using mmu::tile_elems;
 using mmu::tile_idx;
 constexpr int BK = 32;  // K*C columns per reduction slice
-constexpr bool kTapTensorCores = true;  // bf16 products on the tensor cores
 
 struct TapArgs {
   const void* feat;    // (B, H, W, C) stream dtype
@@ -57,7 +56,7 @@ __host__ __device__ constexpr size_t fwd_smem(int k) {
          (size_t)BM * k * 8;
 }
 
-template <typename TI, int WM, int WN, int MT, int NT, bool VEC, bool TC>
+template <typename TI, int WM, int WN, int MT, int NT, bool VEC>
 __global__ void __launch_bounds__(WM * WN * 32) tap_conv_kernel(TapArgs a) {
   constexpr int NTH = WM * WN * 32, BM = WM * MT * 16, BN = WN * NT * 8;
   constexpr int V = mmu::Vec16<TI>::V, CPT = BM * BK / V / NTH;  // A chunks per thread
@@ -181,7 +180,7 @@ __global__ void __launch_bounds__(WM * WN * 32) tap_conv_kernel(TapArgs a) {
     const TI* bs = Bs + buf * tile_elems<TI>(BK, BN);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16)
-      mmu::warp_mma_step<TI, MT, NT, false, true, TC>(acc, as, BK, bs, BN, wm * MT * 16,
+      mmu::warp_mma_step<TI, MT, NT, false, true>(acc, as, BK, bs, BN, wm * MT * 16,
                                                       wn * NT * 8, kk);
     if constexpr (VEC) {
       if (next) store_a(buf ^ 1);
@@ -205,8 +204,7 @@ __global__ void __launch_bounds__(WM * WN * 32) tap_conv_kernel(TapArgs a) {
 template <typename TI, int WM, int WN, int MT, int NT, bool VEC>
 int launch(const TapArgs& a, cudaStream_t stream) {
   constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
-  constexpr bool TC = kTapTensorCores && std::is_same<TI, __nv_bfloat16>::value;
-  const auto kernel = tap_conv_kernel<TI, WM, WN, MT, NT, VEC, TC>;
+  const auto kernel = tap_conv_kernel<TI, WM, WN, MT, NT, VEC>;
   const size_t smem = fwd_smem<TI, BM, BN>(a.K);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

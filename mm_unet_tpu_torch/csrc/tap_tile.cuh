@@ -69,14 +69,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 // One 16-deep step (k0 .. k0 + 15) of a warp's tile at rows m0.., columns
 // n0..: A(m, k) is As[m][k], or As[k][m] when A_KM; B(k, n) is Bs[k][n]
-// when B_KN, else Bs[n][k]. NT is even. TC (bf16 tiles only) takes the
-// tensor cores, else the FMA units.
-template <typename T, int MT, int NT, bool A_KM, bool B_KN, bool TC>
+// when B_KN, else Bs[n][k]. NT is even. bf16 tiles take the tensor cores,
+// f32 tiles the FMA units.
+template <typename T, int MT, int NT, bool A_KM, bool B_KN>
 __device__ __forceinline__ void warp_mma_step(float (&acc)[MT][NT][4], const T* As, int a_cols,
                                               const T* Bs, int b_cols, int m0, int n0, int k0) {
-  static_assert(!TC || std::is_same<T, __nv_bfloat16>::value, "tensor cores take bf16 tiles");
   const int lane = threadIdx.x & 31;
-  if constexpr (!TC) {
+  if constexpr (std::is_same<T, float>::value) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll 4
     for (int kk = 0; kk < 16; ++kk) {
@@ -85,16 +84,14 @@ __device__ __forceinline__ void warp_mma_step(float (&acc)[MT][NT][4], const T* 
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int m = m0 + mt * 16 + g;
-        av[mt][0] = to_f32(A_KM ? As[tile_idx<T>(k, m, a_cols)] : As[tile_idx<T>(m, k, a_cols)]);
-        av[mt][1] = to_f32(A_KM ? As[tile_idx<T>(k, m + 8, a_cols)]
-                                : As[tile_idx<T>(m + 8, k, a_cols)]);
+        av[mt][0] = A_KM ? As[tile_idx<T>(k, m, a_cols)] : As[tile_idx<T>(m, k, a_cols)];
+        av[mt][1] = A_KM ? As[tile_idx<T>(k, m + 8, a_cols)] : As[tile_idx<T>(m + 8, k, a_cols)];
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int n = n0 + nt * 8 + 2 * t;
-        bv[nt][0] = to_f32(B_KN ? Bs[tile_idx<T>(k, n, b_cols)] : Bs[tile_idx<T>(n, k, b_cols)]);
-        bv[nt][1] = to_f32(B_KN ? Bs[tile_idx<T>(k, n + 1, b_cols)]
-                                : Bs[tile_idx<T>(n + 1, k, b_cols)]);
+        bv[nt][0] = B_KN ? Bs[tile_idx<T>(k, n, b_cols)] : Bs[tile_idx<T>(n, k, b_cols)];
+        bv[nt][1] = B_KN ? Bs[tile_idx<T>(k, n + 1, b_cols)] : Bs[tile_idx<T>(n + 1, k, b_cols)];
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
