@@ -123,7 +123,8 @@ TRAIN_STEPS = 6
 # input read once, each output written once) over the first and its
 # operations over their rates: the tap-conv's products of a bf16 stream
 # (bf16 x bf16 -> f32) at the tensor cores' rate, every other operation and
-# every f32 stream at the FMA units' rate
+# every f32 stream at the FMA units' rate; the two units run at once, so
+# the operations take the longer of their two times
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
@@ -136,15 +137,8 @@ def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
     """(least time in ms, what bounds it) for `nbytes` moved, `ops` done on
     the FMA units and `tc_ops` on the bf16 tensor cores."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / F32_OPS_PER_S + tc_ops / BF16_TC_OPS_PER_S) * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, tc_ops / BF16_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def f32_reckoning(nbytes: float, ops: float, tc_ops: float = 0.0) -> float:
-    """The bound in ms with every operation priced at the f32 rate, as this
-    script priced the tap-conv before its bf16 products ran on the tensor
-    cores."""
-    return bound(nbytes, ops + tc_ops)[0]
 
 
 def mamba_work(B, D, L, N, R, W, es, backward):
@@ -163,16 +157,17 @@ def mamba_work(B, D, L, N, R, W, es, backward):
 
 def tap_work(B, H, W, C, F, K, es, backward):
     """(bytes, FMA-unit operations, tensor-core operations) of one tap-conv:
-    feat, row coordinates and kernel in, output out (backward: also dout in,
-    dfeat, dy, dkernel and dbias out); per pixel the gathered lerp and the
+    feat, row coordinates, kernel (in the stream dtype) and bias in, output
+    out (backward: feat, rows, kernel and dout in, dfeat, dy, dkernel and
+    dbias out, dkernel and dbias f32); per pixel the gathered lerp and the
     (K C) x F product (backward: the lerp, the scatter and dy, and two
     products). A bf16 stream's products run on the tensor cores."""
     px = B * H * W
     if backward:
-        nbytes = px * (2 * C * es + 2 * K * 4 + F * es) + 8 * K * C * F + 4 * F
+        nbytes = px * (2 * C * es + 2 * K * 4 + F * es) + K * C * F * (es + 4) + 4 * F
         prod, rest = px * 4 * K * C * F, px * 8 * K * C
     else:
-        nbytes = px * (C * es + K * 4 + F * es) + 4 * (K * C * F + F)
+        nbytes = px * (C * es + K * 4 + F * es) + K * C * F * es + 4 * F
         prod, rest = px * 2 * K * C * F, px * 3 * K * C
     return (nbytes, rest, prod) if es == 2 else (nbytes, rest + prod, 0.0)
 
@@ -292,11 +287,10 @@ def phase1_kernels(gen) -> dict:
             err, rel, ok = compare(got, want, dtype)
             ms = cuda_ms(lambda: tap_conv(f, y, ker, bias, shifts), reps=20)
             plain_ms = cuda_ms(lambda: tap_conv_ref(f, y, ker, bias, shifts), reps=5)
-            work = tap_work(B, hw, hw, C, F, K, f.element_size(), False)
-            bms, by = bound(*work)
+            bms, by = bound(*tap_work(B, hw, hw, C, F, K, f.element_size(), False))
             rec = dict(HW=hw, C=C, F=F, K=K, B=B, dtype=str(dtype)[6:], max_abs_err=err,
                        rel_err=rel, tol=TOL[dtype], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                       bound_by=by, bound_ms_f32_reckoning=f32_reckoning(*work), ok=ok)
+                       bound_by=by, ok=ok)
             print(f"phase1 tap_conv {json.dumps(rec)}", flush=True)
             results["tap_conv"].append(rec)
             failed += [] if ok else [rec]
@@ -427,8 +421,7 @@ def phase1_backward(gen) -> dict:
         bms, by = bound(*work)
         rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(e for e, _ in errs.values()),
                    rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype], errs=errs,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   bound_ms_f32_reckoning=f32_reckoning(*work), ok=ok)
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ok=ok)
         print(f"phase1 {kind} {json.dumps(rec)}", flush=True)
         results[kind].append(rec)
         failed.extend([] if ok else [rec])
@@ -670,10 +663,8 @@ def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
             ms = cuda_ms(call, reps=3)
             kms = kernel_device_ms(call, TAP_FWD_KERNELS)
             ops = call_device_ops(call) if i == 0 else None
-        work = tap_work(B, H, W, C, F, K, inputs[0].element_size(), False)
-        bms, by = bound(*work)
-        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by,
-                   bound_ms_f32_reckoning=f32_reckoning(*work), launches_per_step=calls,
+        bms, by = bound(*tap_work(B, H, W, C, F, K, inputs[0].element_size(), False))
+        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
                    **({"call_ops": ops} if ops else {}))
         print(f"phase1 tap_conv_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
@@ -684,11 +675,10 @@ def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
         ms = cuda_ms(call, reps=3)
         parts = kernel_device_ms_by(call, TAP_BWD_GROUPS)
         ops = call_device_ops(call) if i == 0 else None
-        work = tap_work(B, H, W, C, F, K, dout.element_size(), True)
-        bms, by = bound(*work)
+        bms, by = bound(*tap_work(B, H, W, C, F, K, dout.element_size(), True))
         rec = dict(shape, ms=ms, kernel_ms=sum(parts.values()), dfeat_kernel_ms=parts["dfeat"],
                    dkernel_kernel_ms=parts["dkernel"], bound_ms=bms, bound_by=by,
-                   bound_ms_f32_reckoning=f32_reckoning(*work), launches_per_step=calls,
+                   launches_per_step=calls,
                    **({"call_ops": ops} if ops else {}))
         print(f"phase1 tap_conv_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
@@ -1396,11 +1386,10 @@ def main() -> None:
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps)),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm,
-                **step_sums(tap_fwd_steps, tap_keys, ("bound_ms_f32_reckoning",))),
+                **step_sums(tap_fwd_steps, tap_keys)),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:133", mm,
-                **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms",
-                                                      "bound_ms_f32_reckoning"))),
+                **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms"))),
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128"),

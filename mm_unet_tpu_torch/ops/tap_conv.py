@@ -131,10 +131,11 @@ def _launch_bwd(dout, feat, yc, kb, shifts):
 
 
 class _TapConvFn(torch.autograd.Function):
-    """The CUDA forward kernel and, for its backward, the CUDA backward
-    kernel; dbias is the plain sum of dout (a host sum in JAX too). The
-    kernel's gradient comes back f32 and unrounded, as the JAX kernel keeps
-    its f32 parameter into the core."""
+    """The CUDA forward kernel and, for its backward, `tap_conv_bwd`'s C
+    function: a memset of dy and three kernels give dfeat, dy, dkernel and
+    dbias, with no reduction in the wrapper. The kernel's gradient comes
+    back f32 and unrounded, as the JAX kernel keeps its f32 parameter into
+    the core."""
 
     @staticmethod
     def forward(ctx, feat, y_coords, kernel, bias, x_shifts):

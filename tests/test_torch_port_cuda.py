@@ -214,6 +214,33 @@ def test_tap_conv_backward_matches_plain(H, W, C, F, K, rows, dtype):
     _close_grads(got, want, dtype, ["feat", "y", "kernel", "bias"])
 
 
+# The tallest maps the backward's dfeat strip holds: one column of H rows x
+# 20 floats beside the block's tiles, within the 227 KB a block may use
+# (f32 with 9 taps; bf16 with 3).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,K,rows", [(torch.float32, 9, 1632), (torch.bfloat16, 3, 2521)])
+def test_tap_conv_backward_refuses_maps_taller_than_its_strip(dtype, K, rows):
+    """At the tallest map the strip holds the backward matches the plain
+    version; one row more and it raises instead of overrunning shared
+    memory."""
+    dev = _device()
+    rng = np.random.default_rng(rows + K)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    shifts = [j - K // 2 for j in range(K)]
+    for H in (rows, rows + 1):
+        W, C, F = 5, 16, 16
+        args = [f(1, H, W, C).to(dtype), _tap_rows(rng, dev, 1, H, W, K, "near"),
+                f(K, 1, C, F) * (K * C) ** -0.5, f(F) * 0.1]
+        dout = f(1, H, W, F).to(dtype)
+        if H > rows:
+            with pytest.raises(RuntimeError, match="tap_conv_bwd"):
+                _grads(lambda *a: tap_conv(*a, shifts), args, dout)
+            continue
+        got = _grads(lambda *a: tap_conv(*a, shifts), args, dout)
+        want = _grads(lambda *a: tap_conv_ref(*a, shifts), args, dout)
+        _close_grads(got, want, dtype, ["feat", "y", "kernel", "bias"])
+
+
 # The chunked selective scan (csrc/selective_scan_{fwd,bwd}.cu) through the
 # `selective_scan` entry point against its plain version on the card: the
 # fused flags with grouped B/C (channels per group not a multiple of the
