@@ -491,10 +491,12 @@ def kernel_device_ms(fn, fragments: tuple, reps: int = 3) -> float:
     return kernel_device_ms_by(fn, {"all": fragments}, reps)["all"]
 
 
-def kernel_device_ms_by(fn, groups: dict, reps: int = 3) -> dict:
+def kernel_device_ms_by(fn, groups: dict, reps: int = 3, summed: tuple = ()) -> dict:
     """`kernel_device_ms` for several groups of fragments from the same
     windows: {group: device ms per call}; a window is profiled again while
-    a group has no recorded launch."""
+    a group has no recorded launch. A group in `summed` is launched several
+    times per call under one name (PyTorch's reductions): its time is the
+    window's total over `reps`."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = {}
@@ -506,8 +508,9 @@ def kernel_device_ms_by(fn, groups: dict, reps: int = 3) -> dict:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        ms = {g: sum(e.self_device_time_total / e.count for e in events
-                     if any(f in e.key for f in frags)) / 1e3 for g, frags in groups.items()}
+        ms = {g: sum(e.self_device_time_total / (reps if g in summed else e.count)
+                     for e in events if any(f in e.key for f in frags)) / 1e3
+              for g, frags in groups.items()}
         if all(v > 0 for v in ms.values()):
             break
     return ms
@@ -554,6 +557,29 @@ def tap_step_shapes(model) -> tuple[dict, list]:
         shapes[key] = shapes.get(key, 0) + 1
 
     hooks = [m.register_forward_hook(record) for m in model.modules() if isinstance(m, MMConv)]
+    return shapes, hooks
+
+
+def scan_step_shapes(model) -> tuple[dict, list]:
+    """({shape: selective-scan calls}, hooks): forward hooks on the model's
+    Mambas that count, per forward on the grouped-scan route, the one
+    `selective_scan` call each makes at (batch, channels of all directions,
+    directions, d_state, dt_rank, tokens, stream dtype); a train step's
+    backward launches kernel 6 once per call."""
+    from mm_unet_tpu_torch.models.mamba import DIRECTIONS, Mamba
+
+    shapes: dict = {}
+
+    def record(mod, inputs, _):
+        if mod.use_mega:
+            return
+        bsz, length, _ = inputs[0].shape
+        g = len(DIRECTIONS[mod.bimamba_type])
+        key = (bsz, g * mod.d_inner, g, mod.d_state, mod.dt_rank, length,
+               str(mod.dtype or inputs[0].dtype)[6:])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.modules() if isinstance(m, Mamba)]
     return shapes, hooks
 
 
@@ -681,6 +707,75 @@ def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
                    launches_per_step=calls,
                    **({"call_ops": ops} if ops else {}))
         print(f"phase1 tap_conv_bwd_step {json.dumps(rec)}", flush=True)
+        bwd.append(rec)
+        del inputs, dout, out, live
+    return fwd, bwd
+
+
+# kernel-name fragments of the selective scan's launches: the forward's two
+# chunk passes and its combine; the backward's three passes, and the
+# wrapper's sums of the per-block partials (PyTorch's reductions)
+SCAN_FWD_KERNELS = ("scan_fwd_", "scan_combine_kernel")
+SCAN_BWD_GROUPS = {"pass_a": ("scan_bwd_local",), "pass_b": ("scan_bwd_combine",),
+                   "pass_c": ("scan_bwd_chunk",), "partial_sums": ("reduce_kernel",)}
+
+
+def phase1_scan_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
+    """Kernels 5 and 6 alone at every shape that a dkDualNet route-b train
+    step gives them (from `scan_step_shapes`), every fused flag on and B/C
+    the views of one x_dbl as the Mamba passes them: kernel 5 as a
+    forward-only call of `selective_scan` under `torch.no_grad()`, kernel 6
+    as `torch.autograd.grad` through it; each the mean of 3 calls after one
+    (`ms`, CUDA events, host included) and the device time of its kernels in
+    3 more (`kernel_ms`; kernel 6's split into passes A, B, C and the
+    wrapper's partial sums). Random inputs made on the card. The first
+    shape's lines also carry every device operation of one call
+    (`call_ops`). Timing only: the comparisons are phase 1's. Returns
+    (forward, backward) records."""
+    from mm_unet_tpu_torch.ops.selective_scan import selective_scan
+
+    dev = torch.device("cuda")
+    cgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=cgen, device=dev) * scale
+
+    fwd, bwd = [], []
+    for i, ((B, Dm, G, N, R, L, dt), calls) in enumerate(sorted(shapes.items())):
+        dtype = getattr(torch, dt)
+        A = -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(Dm, 1))
+        inputs = [rn(B, Dm, L).to(dtype), rn(B, Dm, L, scale=0.5).to(dtype), A,
+                  rn(B, G, R + 2 * N, L).to(dtype), rn(Dm, scale=0.5) + 1.0,
+                  rn(B, Dm, L).to(dtype), rn(Dm, scale=0.1) - 4.0]
+
+        def scan(u, delta, A, x_dbl, D, z, bias):
+            return selective_scan(u, delta, A, x_dbl[:, :, R:R + N], x_dbl[:, :, R + N:], D=D,
+                                  z=z, delta_bias=bias, delta_softplus=True)
+
+        shape = dict(B=B, Dm=Dm, G=G, N=N, L=L, dtype=dt)
+        call = lambda: scan(*inputs)  # noqa: E731
+        with torch.no_grad():
+            ms = cuda_ms(call, reps=3)
+            kms = kernel_device_ms(call, SCAN_FWD_KERNELS)
+            ops = call_device_ops(call) if i == 0 else None
+        es = inputs[0].element_size()
+        bms, by = bound(*scan_work(B, Dm, L, N, G, es, es, 3, False))
+        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
+                   **({"call_ops": ops} if ops else {}))
+        print(f"phase1 selective_scan_fwd_step {json.dumps(rec)}", flush=True)
+        fwd.append(rec)
+
+        dout = rn(B, Dm, L).to(dtype)
+        out, live, _ = grads_of(scan, inputs, dout)
+        call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
+        ms = cuda_ms(call, reps=3)
+        parts = kernel_device_ms_by(call, SCAN_BWD_GROUPS, summed=("partial_sums",))
+        ops = call_device_ops(call) if i == 0 else None
+        bms, by = bound(*scan_work(B, Dm, L, N, G, es, es, 3, True))
+        rec = dict(shape, ms=ms, kernel_ms=sum(parts.values()),
+                   **{f"{k}_kernel_ms": v for k, v in parts.items()}, bound_ms=bms, bound_by=by,
+                   launches_per_step=calls, **({"call_ops": ops} if ops else {}))
+        print(f"phase1 selective_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         del inputs, dout, out, live
     return fwd, bwd
@@ -1044,7 +1139,8 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     falling losses, train images/s, peak memory). Then blocks of three train
     steps on route a, route a and route b, after the checked route-b steps,
     so that the two routes' rates are read in turns on one card. Returns the
-    launches of each kernel on each path."""
+    launches of each kernel on each path and the selective scan's shapes in
+    one train step (`scan_step_shapes`)."""
     from mm_unet_tpu_torch.data import synthetic_batch
     from mm_unet_tpu_torch.evaluate import val_one_epoch
     from mm_unet_tpu_torch.models import give_model
@@ -1132,8 +1228,12 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     reset()
     train_counts = {"selective_scan": 0, "selective_scan_bwd": 0}
     losses, times, counts_ok = [], [], True
-    for _ in range(TRAIN_STEPS):
+    scan_shapes, hooks = scan_step_shapes(model)
+    for i in range(TRAIN_STEPS):
         lo, ti, ok1 = steps(1)
+        if i == 0:  # the shapes of one step
+            for h in hooks:
+                h.remove()
         losses += lo
         times += ti
         counts_ok = counts_ok and ok1
@@ -1148,11 +1248,14 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
         counts_ok = counts_ok and ok1
         blocks.append(dict(route=route, losses=lo, step_seconds=ti,
                            train_images_per_sec=x.shape[0] * len(ti) / sum(ti)))
-    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and counts_ok
+    shapes_ok = (sum(scan_shapes.values())
+                 == model.kernel_launches_per_train_step()["selective_scan"]["bwd"])
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and counts_ok and shapes_ok
           and all(np.isfinite(b["losses"]).all() for b in blocks))
     print("phase6 train " + json.dumps(dict(
         route="b", batch=8, size=512, dtype="float32", losses=losses,
         launches_per_step=model.kernel_launches_per_train_step(), counts_ok=counts_ok,
+        scan_shapes=len(scan_shapes), shapes_cover_launches=shapes_ok,
         step_seconds=times, train_images_per_sec=rate, max_memory_allocated_bytes=peak,
         route_blocks_after=blocks, card=smi(), ok=ok)), flush=True)
     if not ok:
@@ -1162,7 +1265,7 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
             model.scan_impl = impl
             profile_step(f"dkdualnet train (route {route})",
                          lambda: train_step(state, x, y, loss_fn))
-    return {"serve": serve, "train": train_counts}
+    return {"serve": serve, "train": train_counts}, scan_shapes
 
 
 def phase7_mm_routes(seed: int) -> None:
@@ -1268,8 +1371,9 @@ _KERNEL_GROUPS = (
     ("mamba_fused_scan_bwd passes A, B, D", ("mamba_bwd_",)),
     ("tap_conv", ("tap_conv_kernel",)),
     ("tap_conv_bwd", ("tap_dfeat_kernel", "tap_dkernel_kernel")),
-    ("selective_scan", ("scan_fwd_kernel", "scan_combine_kernel")),
-    ("selective_scan_bwd", ("scan_bwd_",)),
+    ("selective_scan", SCAN_FWD_KERNELS),
+    ("selective_scan_bwd pass C", ("scan_bwd_chunk",)),
+    ("selective_scan_bwd passes A, B", ("scan_bwd_",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "dgrad", "fprop")),
     ("matmul / einsum", ("gemm", "cutlass", "cublas", "sm90_", "sm80_")),
     ("norm", ("norm",)),
@@ -1342,9 +1446,11 @@ def main() -> None:
     tap_fwd_steps, tap_bwd_steps = phase1_tap_step_shapes(tap_shapes, args.seed)
     print(f"phase1 step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase5_dkdualnet(args.seed)
-    dk = phase6_dkdualnet_path(args.seed, args.profile)
+    dk, scan_shapes = phase6_dkdualnet_path(args.seed, args.profile)
     phase7_mm_routes(args.seed)
     print(f"phases 5-7 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    scan_fwd_steps, scan_bwd_steps = phase1_scan_step_shapes(scan_shapes, args.seed)
+    print(f"phase1 scan step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -1369,13 +1475,15 @@ def main() -> None:
                 "timed": "sum over the phase-1 bf16 shapes"}
 
     def step_sums(steps, keys=("D", "L", "reverse"), extra=()):
-        # per MM_Net train step: each shape's time and bound times its launches
+        # per train step: each shape's time and bound times its launches
         sums = ("ms", "kernel_ms", "bound_ms", *extra)
         return {**{f"step_{k}": sum(r[k] * r["launches_per_step"] for r in steps) for k in sums},
                 "step_shapes": [{k: r[k] for k in (*keys, *sums, "launches_per_step")}
                                 for r in steps]}
 
     tap_keys = ("H", "W", "C", "F", "K")
+    scan_keys = ("Dm", "G", "L")
+    scan_parts = tuple(f"{k}_kernel_ms" for k in SCAN_BWD_GROUPS)
 
     mm = {"serve": serve, "train": train}
     print(smi(), flush=True)
@@ -1392,10 +1500,12 @@ def main() -> None:
                 **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms"))),
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
-                also_replaces="mm_unet_tpu/ops/pallas_scan.py:128"),
+                also_replaces="mm_unet_tpu/ops/pallas_scan.py:128",
+                **step_sums(scan_fwd_steps, scan_keys)),
         summary("selective_scan_bwd", "mm_unet_tpu_torch/csrc/selective_scan_bwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:278", dk,
-                also_replaces="mm_unet_tpu/ops/pallas_scan.py:169"),
+                also_replaces="mm_unet_tpu/ops/pallas_scan.py:169",
+                **step_sums(scan_bwd_steps, scan_keys, scan_parts)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
