@@ -15,6 +15,12 @@
 // its group's varying B/C chunk in shared memory once for all its channels.
 // Ragged edges (channels past a span, tokens past L, lanes past N) are
 // masked as identity steps of the scan (dt = u = B = 0), with no padding.
+//
+// Shared-memory rows. Every per-chunk row (a channel's u, dt, dout, z, or a
+// state's B, C) takes T + 1 floats: with T a multiple of 16, the odd row
+// length puts the N state lanes of a channel that read their B or C rows at
+// one token, and neighbouring channels reading their own rows, in distinct
+// banks (rows of T floats put them all in one bank).
 #pragma once
 
 #include <cstdint>
@@ -59,41 +65,43 @@ __device__ __forceinline__ Blk block_of(const ScanArgs& a) {
   return k;
 }
 
-// one (B, Dm, L) stream's rows of the block into s [chans][T] (f32), 0 past L
-// and for channels past the span
+// one (B, Dm, L) stream's rows of the block into s [chans][T + 1] (f32), 0
+// past L and for channels past the span
 template <typename TI>
 __device__ void stage_rows(const ScanArgs& a, const Blk& k, const void* p, int t0, float* s) {
   const TI* x = static_cast<const TI*>(p);
   for (int i = threadIdx.x; i < a.chans * a.T; i += blockDim.x) {
-    const int c = i / a.T, gt = t0 + (i - c * a.T);
-    s[i] = (c < k.live && gt < a.L) ? to_f32(x[((size_t)k.b * a.Dm + k.d0 + c) * a.L + gt]) : 0.f;
+    const int c = i / a.T, t = i - c * a.T, gt = t0 + t;
+    s[c * (a.T + 1) + t] =
+        (c < k.live && gt < a.L) ? to_f32(x[((size_t)k.b * a.Dm + k.d0 + c) * a.L + gt]) : 0.f;
   }
 }
 
-// dt_s [chans][T] = softplus?(delta + bias), 0 past L (an identity step)
+// dt_s [chans][T + 1] = softplus?(delta + bias), 0 past L (an identity step)
 template <typename TI>
 __device__ void stage_dt(const ScanArgs& a, const Blk& k, int t0, float* dt_s) {
   const TI* x = static_cast<const TI*>(a.delta);
   for (int i = threadIdx.x; i < a.chans * a.T; i += blockDim.x) {
-    const int c = i / a.T, gt = t0 + (i - c * a.T);
+    const int c = i / a.T, t = i - c * a.T, gt = t0 + t;
     float v = 0.f;
     if (c < k.live && gt < a.L) {
       v = to_f32(x[((size_t)k.b * a.Dm + k.d0 + c) * a.L + gt]);
       if (a.bias) v += a.bias[k.d0 + c];
       if (a.softplus) v = softplus(v);
     }
-    dt_s[i] = v;
+    dt_s[c * (a.T + 1) + t] = v;
   }
 }
 
-// s [N][T] = the block's group of a varying B or C, 0 past L
+// s [rows][T + 1] = the block's group of a varying B or C, 0 past L and in
+// the rows past N
 template <typename TB>
 __device__ void stage_bc(const ScanArgs& a, const Blk& k, const void* p, const int64_t* st,
-                         int gdiv, int t0, float* s) {
+                         int gdiv, int t0, int rows, float* s) {
   const TB* x = static_cast<const TB*>(p) + st[0] * k.b + st[1] * (k.d0 / gdiv);
-  for (int i = threadIdx.x; i < a.N * a.T; i += blockDim.x) {
-    const int n = i / a.T, gt = t0 + (i - n * a.T);
-    s[i] = gt < a.L ? to_f32(x[st[2] * n + st[3] * gt]) : 0.f;
+  for (int i = threadIdx.x; i < rows * a.T; i += blockDim.x) {
+    const int n = i / a.T, t = i - n * a.T, gt = t0 + t;
+    s[n * (a.T + 1) + t] = (n < a.N && gt < a.L) ? to_f32(x[st[2] * n + st[3] * gt]) : 0.f;
   }
 }
 

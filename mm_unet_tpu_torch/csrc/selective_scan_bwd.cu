@@ -60,21 +60,21 @@ struct BwdOut {
   float* p_dC;
 };
 
-// dy_s [CH][T] = dout * silu(z) (dout without z), 0 past L
+// dy_s [CH][T + 1] = dout * silu(z) (dout without z), 0 past L
 template <typename TI>
 __device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, int t0,
                          float* dy_s) {
   const TI* dout = static_cast<const TI*>(o.dout);
   const TI* z = static_cast<const TI*>(a.z);
   for (int i = threadIdx.x; i < a.chans * a.T; i += blockDim.x) {
-    const int c = i / a.T, gt = t0 + (i - c * a.T);
+    const int c = i / a.T, t = i - c * a.T, gt = t0 + t;
     float v = 0.f;
     if (c < k.live && gt < a.L) {
       const size_t off = ((size_t)k.b * a.Dm + k.d0 + c) * a.L + gt;
       v = mmu::to_f32(dout[off]);
       if (z) v *= mmu::silu(mmu::to_f32(z[off]));
     }
-    dy_s[i] = v;
+    dy_s[c * (a.T + 1) + t] = v;
   }
 }
 
@@ -82,26 +82,26 @@ __device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, 
 template <typename TI, typename TB>
 __global__ void __launch_bounds__(512) scan_bwd_local_kernel(ScanArgs a, BwdOut o) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, NP = a.NP;
-  float* dt_s = smem;                // [CH][T]
-  float* dy_s = dt_s + a.chans * T;  // [CH][T]
-  float* C_s = dy_s + a.chans * T;   // [N][T] varying C
+  const int T = a.T, N = a.N, NP = a.NP, ld = T + 1;
+  float* dt_s = smem;                 // [CH][T + 1]
+  float* dy_s = dt_s + a.chans * ld;  // [CH][T + 1]
+  float* C_s = dy_s + a.chans * ld;   // [N][T + 1] varying C
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   mmu::stage_dt<TI>(a, k, t0, dt_s);
   stage_dy<TI>(a, o, k, t0, dy_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, C_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
   __syncthreads();
   const int ci = threadIdx.x / NP, n = threadIdx.x - ci * NP;
   if (ci >= k.live || n >= N) return;  // no shuffles in this pass
   const int d = k.d0 + ci;
   const float a_dn = a.A[(size_t)d * N + n];
   const float Cc = a.c_var ? 0.f : mmu::bc_const<TB>(a.Cm, a.cs, d, n);
-  const float* dts = dt_s + ci * T;
-  const float* dys = dy_s + ci * T;
+  const float* dts = dt_s + ci * ld;
+  const float* dys = dy_s + ci * ld;
   float carry = 0.f;
   for (int t = T - 1; t >= 0; --t) {
-    const float g = dys[t] * (a.c_var ? C_s[n * T + t] : Cc) + carry;
+    const float g = dys[t] * (a.c_var ? C_s[n * ld + t] : Cc) + carry;
     carry = expf(dts[t] * a_dn) * g;
   }
   o.gcarry[(((size_t)k.b * a.nC + c) * a.Dm + d) * N + n] = carry;
@@ -129,15 +129,15 @@ __global__ void scan_bwd_combine_kernel(ScanArgs a, BwdOut o) {
 template <typename TI, typename TB>
 __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut o) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, NP = a.NP, CH = a.chans;
-  float* u_s = smem;            // [CH][T] u, then du
-  float* dt_s = u_s + CH * T;   // [CH][T] dt, then ddelta
-  float* do_s = dt_s + CH * T;  // [CH][T] dout
-  float* z_s = do_s + CH * T;   // [CH][T] z, then dz
-  float* B_s = z_s + CH * T;    // [N][T] varying B
-  float* C_s = B_s + N * T;     // [N][T] varying C
-  float* dB_s = C_s + N * T;    // [N][T] sum over the block's channels (varying B)
-  float* dC_s = dB_s + N * T;   // [N][T] (varying C)
+  const int T = a.T, N = a.N, NP = a.NP, CH = a.chans, ld = T + 1;
+  float* u_s = smem;             // [CH][T + 1] u, then du
+  float* dt_s = u_s + CH * ld;   // [CH][T + 1] dt, then ddelta
+  float* do_s = dt_s + CH * ld;  // [CH][T + 1] dout
+  float* z_s = do_s + CH * ld;   // [CH][T + 1] z, then dz
+  float* B_s = z_s + CH * ld;    // [N][T + 1] varying B
+  float* C_s = B_s + N * ld;     // [N][T + 1] varying C
+  float* dB_s = C_s + N * ld;    // [N][T + 1] sum over the block's channels (varying B)
+  float* dC_s = dB_s + N * ld;   // [N][T + 1] (varying C)
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
@@ -145,9 +145,9 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   mmu::stage_rows<TI>(a, k, o.dout, t0, do_s);
   const bool has_z = a.z != nullptr;
   if (has_z) mmu::stage_rows<TI>(a, k, a.z, t0, z_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, B_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, C_s);
-  for (int i = threadIdx.x; i < 2 * N * T; i += blockDim.x) dB_s[i] = 0.f;
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, N, B_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
+  for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
   __syncthreads();
 
   // every lane of a warp runs both walks (dead lanes with zero inputs), so
@@ -162,15 +162,15 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   const float Cc = (live && !a.c_var) ? mmu::bc_const<TB>(a.Cm, a.cs, d, n) : 0.f;
   const float Dd = (chan && a.Dskip) ? a.Dskip[d] : 0.f;
   const size_t sidx = (((size_t)k.b * a.nC + c) * a.Dm + d) * N + n;
-  float* us = u_s + ci * T;
-  float* dts = dt_s + ci * T;
-  const float* dos = do_s + ci * T;
-  float* zs = z_s + ci * T;
+  float* us = u_s + ci * ld;
+  float* dts = dt_s + ci * ld;
+  const float* dos = do_s + ci * ld;
+  float* zs = z_s + ci * ld;
 
   float hbuf[kMaxT];
   float h = live ? a.state[sidx] : 0.f;
   for (int t = 0; t < T; ++t) {  // rebuild h in scan order
-    const float Bv = a.b_var ? (n < N ? B_s[n * T + t] : 0.f) : Bc;
+    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
     h = expf(dts[t] * a_dn) * h + dts[t] * us[t] * Bv;
     hbuf[t] = h;
   }
@@ -181,8 +181,8 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
     const float zv = has_z ? zs[t] : 0.f;
     const float sz = has_z ? 1.f / (1.f + expf(-zv)) : 0.f;
     const float dy = has_z ? dov * zv * sz : dov;
-    const float Bv = a.b_var ? (n < N ? B_s[n * T + t] : 0.f) : Bc;
-    const float Cv = a.c_var ? (n < N ? C_s[n * T + t] : 0.f) : Cc;
+    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
+    const float Cv = a.c_var ? (n < N ? C_s[n * ld + t] : 0.f) : Cc;
     const float hv = hbuf[t];
     const float g = dy * Cv + carry;
     const float gah = g * (hv - dtv * uv * Bv);  // g a h_prev
@@ -195,13 +195,13 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
     float vB = g * dtv * uv, vC = hv * dy;
     if (a.b_var) {
       for (int off = NP; off < 32; off <<= 1) vB += __shfl_xor_sync(0xffffffffu, vB, off);
-      if (lane < N) atomicAdd(&dB_s[lane * T + t], vB);  // lane == n; a dead channel adds 0
+      if (lane < N) atomicAdd(&dB_s[lane * ld + t], vB);  // lane == n; a dead channel adds 0
     } else {
       dB_acc += vB;
     }
     if (a.c_var) {
       for (int off = NP; off < 32; off <<= 1) vC += __shfl_xor_sync(0xffffffffu, vC, off);
-      if (lane < N) atomicAdd(&dC_s[lane * T + t], vC);
+      if (lane < N) atomicAdd(&dC_s[lane * ld + t], vC);
     } else {
       dC_acc += vC;
     }
@@ -235,20 +235,20 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   TI* ddelta = static_cast<TI*>(o.ddelta);
   TI* dz = static_cast<TI*>(o.dz);
   for (int i = threadIdx.x; i < CH * T; i += blockDim.x) {
-    const int cj = i / T, gt = t0 + (i - cj * T);
+    const int cj = i / T, t = i - cj * T, gt = t0 + t;
     if (cj >= k.live || gt >= a.L) continue;
     const size_t off = ((size_t)k.b * a.Dm + k.d0 + cj) * a.L + gt;
-    du[off] = mmu::from_f32<TI>(u_s[i]);
-    ddelta[off] = mmu::from_f32<TI>(dt_s[i]);
-    if (has_z) dz[off] = mmu::from_f32<TI>(z_s[i]);
+    du[off] = mmu::from_f32<TI>(u_s[cj * ld + t]);
+    ddelta[off] = mmu::from_f32<TI>(dt_s[cj * ld + t]);
+    if (has_z) dz[off] = mmu::from_f32<TI>(z_s[cj * ld + t]);
   }
   // this block's partial of a varying dB / dC: row blockIdx.x of (B * spans * nDB, N, L)
   for (int i = threadIdx.x; i < N * T; i += blockDim.x) {
-    const int nn = i / T, gt = t0 + (i - nn * T);
+    const int nn = i / T, t = i - nn * T, gt = t0 + t;
     if (gt >= a.L) continue;
     const size_t off = ((size_t)blockIdx.x * N + nn) * a.L + gt;
-    if (a.b_var) o.p_dB[off] = dB_s[i];
-    if (a.c_var) o.p_dC[off] = dC_s[i];
+    if (a.b_var) o.p_dB[off] = dB_s[nn * ld + t];
+    if (a.c_var) o.p_dC[off] = dC_s[nn * ld + t];
   }
 }
 
@@ -256,8 +256,8 @@ template <typename TI, typename TB>
 int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
   const dim3 grid(a.Bsz * (a.Dm / a.span) * a.nDB, a.nC);
   const int threads = a.chans * a.NP;
-  const size_t smem_local = (size_t)(2 * a.chans + a.N) * a.T * sizeof(float);
-  const size_t smem_chunk = (size_t)(4 * a.chans + 4 * a.N) * a.T * sizeof(float);
+  const size_t smem_local = (size_t)(2 * a.chans + a.N) * (a.T + 1) * sizeof(float);
+  const size_t smem_chunk = (size_t)(4 * a.chans + 4 * a.N) * (a.T + 1) * sizeof(float);
   cudaError_t err;
   if (a.nC > 1) {
     err = cudaFuncSetAttribute(scan_bwd_local_kernel<TI, TB>,

@@ -43,17 +43,17 @@ using mmu::ScanArgs;
 template <typename TI, typename TB, bool FINAL>
 __global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, float* last) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, NP = a.NP, CH = a.chans;
-  float* u_s = smem;            // [CH][T] u
-  float* dt_s = u_s + CH * T;   // [CH][T] dt; pass 3 overwrites it with C . h
-  float* B_s = dt_s + CH * T;   // [N][T] varying B
-  float* C_s = B_s + N * T;     // [N][T] varying C (pass 3)
+  const int T = a.T, N = a.N, NP = a.NP, CH = a.chans, ld = T + 1;
+  float* u_s = smem;             // [CH][T + 1] u
+  float* dt_s = u_s + CH * ld;   // [CH][T + 1] dt; pass 3 overwrites it with C . h
+  float* B_s = dt_s + CH * ld;   // [N][T + 1] varying B
+  float* C_s = B_s + N * ld;     // [N][T + 1] varying C (pass 3)
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
   mmu::stage_dt<TI>(a, k, t0, dt_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, B_s);
-  if (FINAL && a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, C_s);
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, N, B_s);
+  if (FINAL && a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
   __syncthreads();
 
   // one thread per (channel ci, state n); every lane runs the loop (dead
@@ -70,14 +70,14 @@ __global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, fl
     if (a.nC > 1) h = a.state[sidx];
     else a.state[sidx] = 0.f;  // one chunk: no pass 1; the backward reads a zero entry state
   }
-  float* dts = dt_s + ci * T;
-  const float* us = u_s + ci * T;
+  float* dts = dt_s + ci * ld;
+  const float* us = u_s + ci * ld;
   for (int t = 0; t < T; ++t) {
     const float dtv = dts[t];
-    const float Bv = a.b_var ? (n < N ? B_s[n * T + t] : 0.f) : Bc;
+    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
     h = expf(dtv * a_dn) * h + dtv * us[t] * Bv;
     if (FINAL) {
-      float yp = h * (a.c_var ? (n < N ? C_s[n * T + t] : 0.f) : Cc);
+      float yp = h * (a.c_var ? (n < N ? C_s[n * ld + t] : 0.f) : Cc);
       for (int off = NP / 2; off > 0; off >>= 1) yp += __shfl_xor_sync(0xffffffffu, yp, off);
       // every lane of the group has read dt[ci][t] before the shuffle
       if (n == 0) dts[t] = yp;
@@ -97,12 +97,12 @@ __global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, fl
   const TI* z = static_cast<const TI*>(a.z);
   TI* o = static_cast<TI*>(out);
   for (int i = threadIdx.x; i < CH * T; i += blockDim.x) {
-    const int cj = i / T, gt = t0 + (i - cj * T);
+    const int cj = i / T, t = i - cj * T, gt = t0 + t;
     if (cj >= k.live || gt >= a.L) continue;
     const int dj = k.d0 + cj;
     const size_t off = ((size_t)k.b * a.Dm + dj) * a.L + gt;
-    float y = dt_s[i];
-    if (a.Dskip) y += a.Dskip[dj] * u_s[i];
+    float y = dt_s[cj * ld + t];
+    if (a.Dskip) y += a.Dskip[dj] * u_s[cj * ld + t];
     if (z) y *= mmu::silu(mmu::to_f32(z[off]));
     o[off] = mmu::from_f32<TI>(y);
   }
@@ -131,7 +131,7 @@ template <typename TI, typename TB>
 int launch(const ScanArgs& a, void* out, float* last, cudaStream_t stream) {
   const dim3 grid(a.Bsz * (a.Dm / a.span) * a.nDB, a.nC);
   const int threads = a.chans * a.NP;
-  const size_t smem = (size_t)(2 * a.chans + 2 * a.N) * a.T * sizeof(float);
+  const size_t smem = (size_t)(2 * a.chans + 2 * a.N) * (a.T + 1) * sizeof(float);
   cudaError_t err;
   if (a.nC > 1) {
     err = cudaFuncSetAttribute(scan_fwd_kernel<TI, TB, false>,

@@ -34,8 +34,8 @@ from typing import Optional
 import torch
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_BUDGET = 96 * 1024  # bytes of shared memory a backward block may take
-_MAX_T = 128              # longest chunk (the backward's per-thread h buffer)
+_SMEM_BUDGET = 160 * 1024  # bytes of shared memory a backward block may take
+_MAX_T = 128               # longest chunk (the backward's per-thread h buffer)
 
 
 @dataclass(frozen=True)
@@ -78,6 +78,12 @@ def _bc_layout(x: torch.Tensor, batch: int, dim: int, n: int, length: int, name:
     raise ValueError(f"selective_scan: {name} has {x.ndim} dimensions")
 
 
+def _bwd_smem_bytes(n: int, NP: int, chans: int, T: int) -> int:
+    """Dynamic shared memory of the backward's chunk pass (its largest block):
+    four channel rows and four state rows of T + 1 floats."""
+    return (4 * chans + 4 * n) * (T + 1) * 4
+
+
 def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> _Plan:
     batch, dim, length = u.shape
     n = A.shape[1]
@@ -88,7 +94,7 @@ def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) ->
     per_warp = 32 // NP  # channels in one warp
     chans = min(512 // NP, -(-span // per_warp) * per_warp)
     T = _MAX_T
-    while T > 16 and (4 * chans + 4 * n) * T * 4 > _SMEM_BUDGET:
+    while T > 16 and _bwd_smem_bytes(n, NP, chans, T) > _SMEM_BUDGET:
         T //= 2
     return _Plan(NP, span, chans, T, lb[0] + lc[0], (lb[1], lc[1]), (lb[2], lc[2]))
 
