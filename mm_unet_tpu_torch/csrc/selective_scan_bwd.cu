@@ -39,13 +39,15 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mamba_chunk.cuh"
 #include "selective_scan.cuh"
 
 namespace {
 
+using mmu::kS;  // tokens per sub-chunk of pass C, whose states live in registers
 using mmu::ScanArgs;
 
-constexpr int kMaxT = 128;  // longest chunk: the per-thread h buffer
+constexpr int kMaxT = 128;  // longest chunk
 
 struct BwdOut {
   const void* dout;  // (B, Dm, L) stream dtype
@@ -90,7 +92,7 @@ __global__ void __launch_bounds__(512) scan_bwd_local_kernel(ScanArgs a, BwdOut 
   const int c = blockIdx.y, t0 = c * T;
   mmu::stage_dt<TI>(a, k, t0, dt_s);
   stage_dy<TI>(a, o, k, t0, dy_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
   __syncthreads();
   const int ci = threadIdx.x / NP, n = threadIdx.x - ci * NP;
   if (ci >= k.live || n >= N) return;  // no shuffles in this pass
@@ -125,34 +127,44 @@ __global__ void scan_bwd_combine_kernel(ScanArgs a, BwdOut o) {
   }
 }
 
-// Pass C: the full adjoint of one chunk and every gradient term.
-template <typename TI, typename TB>
+// Pass C: the full adjoint of one chunk and every gradient term. NP is the
+// lanes of a channel's state group (N rounded up to a power of two).
+template <typename TI, typename TB, int NP>
 __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut o) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, NP = a.NP, CH = a.chans, ld = T + 1;
+  const int T = a.T, N = a.N, CH = a.chans, ld = T + 1, nsub = T / kS;
   float* u_s = smem;             // [CH][T + 1] u, then du
   float* dt_s = u_s + CH * ld;   // [CH][T + 1] dt, then ddelta
-  float* do_s = dt_s + CH * ld;  // [CH][T + 1] dout
-  float* z_s = do_s + CH * ld;   // [CH][T + 1] z, then dz
-  float* B_s = z_s + CH * ld;    // [N][T + 1] varying B
-  float* C_s = B_s + N * ld;     // [N][T + 1] varying C
-  float* dB_s = C_s + N * ld;    // [N][T + 1] sum over the block's channels (varying B)
+  float* dy_s = dt_s + CH * ld;  // [CH][T + 1] dy = dout * silu(z)
+  float* do_s = dy_s + CH * ld;  // [CH][T + 1] dout (with z)
+  float* z_s = do_s + CH * ld;   // [CH][T + 1] z, then dz (with z)
+  float* B_s = z_s + CH * ld;    // [NP][T + 1] varying B, rows past N zero
+  float* C_s = B_s + NP * ld;    // [NP][T + 1] varying C
+  float* dB_s = C_s + NP * ld;   // [N][T + 1] sum over the block's channels (varying B)
   float* dC_s = dB_s + N * ld;   // [N][T + 1] (varying C)
+  float* ck_s = dC_s + N * ld;   // [T / kS][blockDim] each thread's sub-chunk entry states
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
+  const bool has_z = a.z != nullptr;
   mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
   mmu::stage_dt<TI>(a, k, t0, dt_s);
-  mmu::stage_rows<TI>(a, k, o.dout, t0, do_s);
-  const bool has_z = a.z != nullptr;
+  mmu::stage_rows<TI>(a, k, o.dout, t0, has_z ? do_s : dy_s);
   if (has_z) mmu::stage_rows<TI>(a, k, a.z, t0, z_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, N, B_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, NP, B_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
   for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
   __syncthreads();
+  if (has_z) {  // dy once per (channel, token), not once per state lane
+    for (int i = threadIdx.x; i < CH * ld; i += blockDim.x) dy_s[i] = do_s[i] * mmu::silu(z_s[i]);
+    __syncthreads();
+  }
 
-  // every lane of a warp runs both walks (dead lanes with zero inputs), so
-  // the shuffles below always see the full warp
-  const int ci = threadIdx.x / NP, n = threadIdx.x - ci * NP;
+  // every lane of a warp runs every walk (dead lanes with zero inputs: a
+  // channel past the span has dt = u = dy = 0, a lane past N has A = B = C
+  // = 0), so the shuffles below always see the full warp
+  constexpr int kNe = NP < kS ? NP : kS;  // lanes of a group that end with distinct sums
+  constexpr int kRep = NP / kNe;          // lanes that hold each of them
+  const int ci = threadIdx.x / NP, n = threadIdx.x % NP;
   const int lane = threadIdx.x & 31;
   const bool chan = ci < k.live;
   const bool live = chan && n < N;
@@ -164,59 +176,93 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   const size_t sidx = (((size_t)k.b * a.nC + c) * a.Dm + d) * N + n;
   float* us = u_s + ci * ld;
   float* dts = dt_s + ci * ld;
+  const float* dys = dy_s + ci * ld;
   const float* dos = do_s + ci * ld;
   float* zs = z_s + ci * ld;
+  const float* Bn = B_s + n * ld;
+  const float* Cn = C_s + n * ld;
 
-  float hbuf[kMaxT];
+  // walk 1, in scan order: the state entering each sub-chunk, into this
+  // thread's column of ck_s
   float h = live ? a.state[sidx] : 0.f;
-  for (int t = 0; t < T; ++t) {  // rebuild h in scan order
-    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
-    h = expf(dts[t] * a_dn) * h + dts[t] * us[t] * Bv;
-    hbuf[t] = h;
+  for (int s = 0; s < nsub; ++s) {
+    ck_s[s * blockDim.x + threadIdx.x] = h;
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      const int t = s * kS + j;
+      const float dtv = dts[t];
+      h = expf(dtv * a_dn) * h + dtv * us[t] * (a.b_var ? Bn[t] : Bc);
+    }
   }
   float carry = (live && a.nC > 1) ? o.gcarry[sidx] : 0.f;
   float dA_acc = 0.f, dB_acc = 0.f, dC_acc = 0.f, dD_acc = 0.f, dbias_acc = 0.f;
-  for (int t = T - 1; t >= 0; --t) {  // the adjoint, against the scan direction
-    const float dtv = dts[t], uv = us[t], dov = dos[t];
-    const float zv = has_z ? zs[t] : 0.f;
-    const float sz = has_z ? 1.f / (1.f + expf(-zv)) : 0.f;
-    const float dy = has_z ? dov * zv * sz : dov;
-    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
-    const float Cv = a.c_var ? (n < N ? C_s[n * ld + t] : 0.f) : Cc;
-    const float hv = hbuf[t];
-    const float g = dy * Cv + carry;
-    const float gah = g * (hv - dtv * uv * Bv);  // g a h_prev
-    float gB = g * Bv, pA = gah * a_dn, yp = hv * Cv;
-    for (int off = NP / 2; off > 0; off >>= 1) {  // sums over the states
-      gB += __shfl_xor_sync(0xffffffffu, gB, off);
-      pA += __shfl_xor_sync(0xffffffffu, pA, off);
-      yp += __shfl_xor_sync(0xffffffffu, yp, off);
+  for (int s = nsub - 1; s >= 0; --s) {  // sub-chunks against the scan direction
+    // rebuild the sub-chunk's states and decays into registers
+    float hr[kS], ar[kS], pa[kS];
+    h = ck_s[s * blockDim.x + threadIdx.x];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      const int t = s * kS + j;
+      const float dtv = dts[t];
+      ar[j] = expf(dtv * a_dn);
+      h = ar[j] * h + dtv * us[t] * (a.b_var ? Bn[t] : Bc);
+      hr[j] = h;
     }
-    float vB = g * dtv * uv, vC = hv * dy;
-    if (a.b_var) {
-      for (int off = NP; off < 32; off <<= 1) vB += __shfl_xor_sync(0xffffffffu, vB, off);
-      if (lane < N) atomicAdd(&dB_s[lane * ld + t], vB);  // lane == n; a dead channel adds 0
-    } else {
-      dB_acc += vB;
+    // the adjoint: g and this lane's terms per token; the sums over the
+    // warp's channels at once, the sums over the states after the walk
+#pragma unroll
+    for (int j = kS - 1; j >= 0; --j) {
+      const int t = s * kS + j;
+      const float dtu = dts[t] * us[t], dyv = dys[t];
+      const float Bv = a.b_var ? Bn[t] : Bc, Cv = a.c_var ? Cn[t] : Cc;
+      const float g = dyv * Cv + carry;
+      const float gah = g * (hr[j] - dtu * Bv);  // g a h_prev
+      float vB = g * dtu, vC = hr[j] * dyv;
+      if (a.b_var) {
+        for (int off = NP; off < 32; off <<= 1) vB += __shfl_xor_sync(0xffffffffu, vB, off);
+        if (lane < N) atomicAdd(&dB_s[lane * ld + t], vB);  // lane == n; a dead channel adds 0
+      } else {
+        dB_acc += vB;
+      }
+      if (a.c_var) {
+        for (int off = NP; off < 32; off <<= 1) vC += __shfl_xor_sync(0xffffffffu, vC, off);
+        if (lane < N) atomicAdd(&dC_s[lane * ld + t], vC);
+      } else {
+        dC_acc += vC;
+      }
+      dA_acc += gah * dts[t];
+      carry = ar[j] * g;
+      ar[j] = g * Bv;          // now the terms of sum_n g B,
+      pa[j] = gah * a_dn;      // sum_n g a h_prev A
+      hr[j] = hr[j] * Cv;      // and sum_n h C
     }
-    if (a.c_var) {
-      for (int off = NP; off < 32; off <<= 1) vC += __shfl_xor_sync(0xffffffffu, vC, off);
-      if (lane < N) atomicAdd(&dC_s[lane * ld + t], vC);
-    } else {
-      dC_acc += vC;
+    // every lane of the group has read u, dt and dy of the sub-chunk's
+    // tokens: the sums' owners overwrite u and dt, and z with dz
+    mmu::group_sum_scatter<NP>(ar, lane);
+    mmu::group_sum_scatter<NP>(pa, lane);
+    mmu::group_sum_scatter<NP>(hr, lane);
+    if (chan && n % kRep == 0) {
+#pragma unroll
+      for (int i = 0; i < kS / kNe; ++i) {
+        const int t = s * kS + n / kRep * (kS / kNe) + i;
+        const float dtv = dts[t], uv = us[t], dyv = dys[t];
+        float ddt = pa[i] + uv * ar[i];
+        if (a.softplus) ddt *= -expm1f(-dtv);  // sigmoid(raw) = 1 - exp(-softplus(raw))
+        dD_acc += dyv * uv;
+        dbias_acc += ddt;
+        us[t] = dtv * ar[i] + dyv * Dd;
+        dts[t] = ddt;
+        if (has_z) {
+          const float zv = zs[t], sz = 1.f / (1.f + expf(-zv));
+          zs[t] = dos[t] * (hr[i] + Dd * uv) * (sz + zv * sz * (1.f - sz));
+        }
+      }
     }
-    dA_acc += gah * dtv;
-    carry = expf(dtv * a_dn) * g;
-    // every lane of the group read u, dt, z [ci][t] before the shuffles
-    if (chan && n == 0) {
-      float ddt = pA + uv * gB;
-      if (a.softplus) ddt *= -expm1f(-dtv);  // sigmoid(raw) = 1 - exp(-softplus(raw))
-      dD_acc += dy * uv;
-      dbias_acc += ddt;
-      us[t] = dtv * gB + dy * Dd;
-      dts[t] = ddt;
-      if (has_z) zs[t] = dov * (yp + Dd * uv) * (sz + zv * sz * (1.f - sz));
-    }
+  }
+#pragma unroll
+  for (int off = NP / 2; off > 0; off >>= 1) {  // the owners' sums over the group
+    dD_acc += __shfl_xor_sync(0xffffffffu, dD_acc, off);
+    dbias_acc += __shfl_xor_sync(0xffffffffu, dbias_acc, off);
   }
   if (live) {
     o.p_dA[sidx] = dA_acc;
@@ -252,12 +298,24 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   }
 }
 
+template <typename TI, typename TB, int NP>
+cudaError_t launch_chunk(const ScanArgs& a, const BwdOut& o, dim3 grid, int threads,
+                         cudaStream_t stream) {
+  const size_t smem = ((size_t)(5 * a.chans + 2 * NP + 2 * a.N) * (a.T + 1) +
+                       (size_t)(a.T / kS) * threads) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(scan_bwd_chunk_kernel<TI, TB, NP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+  if (err != cudaSuccess) return err;
+  scan_bwd_chunk_kernel<TI, TB, NP><<<grid, threads, smem, stream>>>(a, o);
+  return cudaSuccess;
+}
+
 template <typename TI, typename TB>
 int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
   const dim3 grid(a.Bsz * (a.Dm / a.span) * a.nDB, a.nC);
   const int threads = a.chans * a.NP;
-  const size_t smem_local = (size_t)(2 * a.chans + a.N) * (a.T + 1) * sizeof(float);
-  const size_t smem_chunk = (size_t)(4 * a.chans + 4 * a.N) * (a.T + 1) * sizeof(float);
+  const size_t smem_local = (size_t)(2 * a.chans + a.NP) * (a.T + 1) * sizeof(float);
   cudaError_t err;
   if (a.nC > 1) {
     err = cudaFuncSetAttribute(scan_bwd_local_kernel<TI, TB>,
@@ -267,10 +325,15 @@ int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
     const int64_t chains = (int64_t)a.Bsz * a.Dm * a.N;
     scan_bwd_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a, o);
   }
-  err = cudaFuncSetAttribute(scan_bwd_chunk_kernel<TI, TB>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_chunk);
+  switch (a.NP) {
+    case 1: err = launch_chunk<TI, TB, 1>(a, o, grid, threads, stream); break;
+    case 2: err = launch_chunk<TI, TB, 2>(a, o, grid, threads, stream); break;
+    case 4: err = launch_chunk<TI, TB, 4>(a, o, grid, threads, stream); break;
+    case 8: err = launch_chunk<TI, TB, 8>(a, o, grid, threads, stream); break;
+    case 16: err = launch_chunk<TI, TB, 16>(a, o, grid, threads, stream); break;
+    default: err = launch_chunk<TI, TB, 32>(a, o, grid, threads, stream); break;
+  }
   if (err != cudaSuccess) return err;
-  scan_bwd_chunk_kernel<TI, TB><<<grid, threads, smem_chunk, stream>>>(a, o);
   return cudaGetLastError();
 }
 

@@ -34,8 +34,8 @@ from typing import Optional
 import torch
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_BUDGET = 160 * 1024  # bytes of shared memory a backward block may take
-_MAX_T = 128               # longest chunk (the backward's per-thread h buffer)
+_SMEM_BUDGET = 160 * 1024  # bytes of shared memory a block of any pass may take
+_MAX_T = 128               # longest chunk
 
 
 @dataclass(frozen=True)
@@ -78,10 +78,17 @@ def _bc_layout(x: torch.Tensor, batch: int, dim: int, n: int, length: int, name:
     raise ValueError(f"selective_scan: {name} has {x.ndim} dimensions")
 
 
-def _bwd_smem_bytes(n: int, NP: int, chans: int, T: int) -> int:
-    """Dynamic shared memory of the backward's chunk pass (its largest block):
-    four channel rows and four state rows of T + 1 floats."""
-    return (4 * chans + 4 * n) * (T + 1) * 4
+def _smem_bytes(n: int, NP: int, chans: int, T: int) -> dict:
+    """Dynamic shared memory, in bytes, that each chunk pass asks for at one
+    block of `chans` channels and chunks of T tokens (as the launches in
+    `csrc/selective_scan_{fwd,bwd}.cu` compute it): rows of T + 1 floats per
+    channel and per state, and pass C's entry state of each thread's every
+    sub-chunk of 16 tokens."""
+    rows = T + 1
+    return {"fwd_local": (2 * chans + n) * rows * 4,
+            "fwd_final": (2 * chans + 2 * n) * rows * 4,
+            "bwd_local": (2 * chans + NP) * rows * 4,
+            "bwd_chunk": ((5 * chans + 2 * NP + 2 * n) * rows + T // 16 * chans * NP) * 4}
 
 
 def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> _Plan:
@@ -93,9 +100,13 @@ def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) ->
     NP = 1 << (n - 1).bit_length()
     per_warp = 32 // NP  # channels in one warp
     chans = min(512 // NP, -(-span // per_warp) * per_warp)
-    T = _MAX_T
-    while T > 16 and _bwd_smem_bytes(n, NP, chans, T) > _SMEM_BUDGET:
-        T //= 2
+    T = _MAX_T  # the longest chunk that fits, then fewer channels
+    while (max(_smem_bytes(n, NP, chans, T).values()) > _SMEM_BUDGET
+           and (T > 16 or chans > per_warp)):
+        if T > 16:
+            T //= 2
+        else:
+            chans = max(per_warp, chans // 2 // per_warp * per_warp)
     return _Plan(NP, span, chans, T, lb[0] + lc[0], (lb[1], lc[1]), (lb[2], lc[2]))
 
 

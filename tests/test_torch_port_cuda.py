@@ -248,7 +248,8 @@ def test_tap_conv_backward_refuses_maps_taller_than_its_strip(dtype, K, rows):
 # count that is not a power of two, one chunk, and a B/C read through the
 # strides of a slice. Forward tolerance as TOL, gradients as BWD_TOL.
 SCAN_CASES = [
-    # batch, dim, L, N, B/C kind (G, or "const"), fused flags, last state
+    # batch, dim, L, N, B/C kind (G, "const", or "slice" / "slice3": views of
+    # one (B, G, R + 2N, L) tensor with G = 2 / 3), fused flags, last state
     (2, 12, 300, 16, 2, True, False),
     (2, 18, 700, 16, 3, True, False),
     (2, 12, 300, 16, 1, False, True),
@@ -256,6 +257,13 @@ SCAN_CASES = [
     (2, 9, 150, 5, 3, True, True),
     (1, 6, 50, 16, 1, True, False),
     (2, 96, 260, 16, "slice", True, False),
+    (2, 12, 300, 8, 2, True, True),           # N = 8: two channels per 16 lanes
+    (1, 6, 300, 32, 1, True, True),           # N = 32: one channel per warp
+    (2, 3, 150, 5, 3, True, True),            # N = 5, each group one channel's lane group
+    (1, 12, 263, 16, 2, True, False),         # L ends 7 tokens into a sub-chunk
+    (2, 12, 128, 16, 2, True, True),          # exactly one chunk
+    (2, 384, 300, 16, "slice3", True, False),  # MM_Net's route b: G = 3, D = 128 per group
+    (2, 80, 200, 16, 2, True, False),         # span 40: the second block holds 8 channels
 ]
 
 
@@ -267,8 +275,8 @@ def _scan_args(dev, batch, dim, L, N, bc, fused, dtype):
     A = -torch.exp(f(dim, N) * 0.5)
     if bc == "const":
         B, C = f(dim, N), f(dim, N)
-    elif bc == "slice":  # B and C as views into one (B, G, R + 2N, L) tensor, as Mamba passes them
-        x_dbl = f(batch, 2, 3 + 2 * N, L).to(dtype)
+    elif bc in ("slice", "slice3"):  # views of one (B, G, R + 2N, L) tensor, as Mamba passes them
+        x_dbl = f(batch, 2 if bc == "slice" else 3, 3 + 2 * N, L).to(dtype)
         B, C = x_dbl[:, :, 3:3 + N], x_dbl[:, :, 3 + N:]
     elif bc == 1:
         B, C = f(batch, N, L).to(dtype), f(batch, N, L).to(dtype)

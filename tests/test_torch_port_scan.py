@@ -185,3 +185,37 @@ def test_plain_scan_backward_is_linear_in_tokens():
         todo += [nxt for nxt, _ in node.next_functions]
     assert any(k.startswith("UnbindBackward") for k in kinds), kinds
     assert not any(k.startswith("SelectBackward") for k in kinds), kinds
+
+
+# every selective-scan shape of a dkDualNet route-b train step at 512², batch
+# 8 (three grouped scans, two directions each), and of MM_Net's Mambas on the
+# grouped-scan route (three directions, D per group 2, 6 and 128), as
+# chip_smoke.py's forward hooks record them: (batch, channels, G, N, dt_rank, L)
+PLAN_SHAPES = [(8, 2 * d, 2, 16, r, L) for d, r, L in ((96, 3, 16384), (192, 6, 4096),
+                                                          (384, 12, 1024))] + [
+    (8, 3 * d, 3, 16, r, L) for d, r, L in (
+        (2, 1, 256), (2, 1, 1024), (2, 1, 4096), (6, 1, 256), (6, 1, 1024), (6, 1, 4096),
+        (6, 1, 16384), (6, 1, 65536), (128, 4, 4096), (128, 4, 16384), (128, 4, 65536))]
+
+
+@pytest.mark.parametrize("batch,dim,G,N,R,L", PLAN_SHAPES)
+def test_scan_plan_fits_the_kernels(batch, dim, G, N, R, L):
+    """How the kernels cut a call at the main paths' shapes, B/C the views of
+    one x_dbl as the Mamba passes them: chunks a multiple of the 16-token
+    sub-chunk and at most 128 tokens, every pass's shared memory within the
+    budget (itself within the H100's 227 KB a block), whole warps of at most
+    512 threads, blocks inside one B/C group."""
+    from mm_unet_tpu_torch.ops.chunked_scan import _SMEM_BUDGET, _plan, _smem_bytes
+
+    meta = dict(device="meta")
+    x_dbl = torch.empty(batch, G, R + 2 * N, L, **meta)
+    plan = _plan(torch.empty(batch, dim, L, **meta), torch.empty(dim, N, **meta),
+                 x_dbl[:, :, R:R + N], x_dbl[:, :, R + N:])
+    threads = plan.chans * plan.NP
+    assert plan.T % 16 == 0 and 16 <= plan.T <= 128
+    assert threads <= 512 and threads % 32 == 0
+    assert plan.NP == 16 and plan.span == dim // G and plan.chans <= plan.span
+    assert plan.var == (True, True) and plan.gdiv == (dim // G, dim // G)
+    assert plan.strides == (x_dbl.stride() * 2)
+    smem = _smem_bytes(N, plan.NP, plan.chans, plan.T)
+    assert max(smem.values()) <= _SMEM_BUDGET <= 227 * 1024, smem
