@@ -140,9 +140,11 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   float* z_s = do_s + CH * ld;   // [CH][T + 1] z, then dz (with z)
   float* B_s = z_s + CH * ld;    // [NP][T + 1] varying B, rows past N zero
   float* C_s = B_s + NP * ld;    // [NP][T + 1] varying C
-  float* dB_s = C_s + NP * ld;   // [N][T + 1] sum over the block's channels (varying B)
-  float* dC_s = dB_s + N * ld;   // [N][T + 1] (varying C)
-  float* ck_s = dC_s + N * ld;   // [T / kS][blockDim] each thread's sub-chunk entry states
+  float* ck_s = C_s + NP * ld;   // [T / kS][blockDim] each thread's sub-chunk entry states
+  // [2][warps][kS][NP + 1]: each warp's terms of dB and dC for one sub-chunk,
+  // summed over its channels (odd rows: the block's sum reads them by token)
+  const int W = blockDim.x / 32, pw = kS * (NP + 1);
+  float* part = ck_s + nsub * blockDim.x;
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   const bool has_z = a.z != nullptr;
@@ -152,7 +154,6 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   if (has_z) mmu::stage_rows<TI>(a, k, a.z, t0, z_s);
   if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, NP, B_s);
   if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
-  for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
   __syncthreads();
   if (has_z) {  // dy once per (channel, token), not once per state lane
     for (int i = threadIdx.x; i < CH * ld; i += blockDim.x) dy_s[i] = do_s[i] * mmu::silu(z_s[i]);
@@ -165,7 +166,7 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   constexpr int kNe = NP < kS ? NP : kS;  // lanes of a group that end with distinct sums
   constexpr int kRep = NP / kNe;          // lanes that hold each of them
   const int ci = threadIdx.x / NP, n = threadIdx.x % NP;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const bool chan = ci < k.live;
   const bool live = chan && n < N;
   const int d = k.d0 + ci;
@@ -209,7 +210,8 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
       hr[j] = h;
     }
     // the adjoint: g and this lane's terms per token; the sums over the
-    // warp's channels at once, the sums over the states after the walk
+    // warp's channels at once (each warp its own cells of `part`), the sums
+    // over the states after the walk
 #pragma unroll
     for (int j = kS - 1; j >= 0; --j) {
       const int t = s * kS + j;
@@ -219,14 +221,16 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
       const float gah = g * (hr[j] - dtu * Bv);  // g a h_prev
       float vB = g * dtu, vC = hr[j] * dyv;
       if (a.b_var) {
+#pragma unroll
         for (int off = NP; off < 32; off <<= 1) vB += __shfl_xor_sync(0xffffffffu, vB, off);
-        if (lane < N) atomicAdd(&dB_s[lane * ld + t], vB);  // lane == n; a dead channel adds 0
+        if (lane < NP) part[(warp * kS + j) * (NP + 1) + lane] = vB;  // lane == n
       } else {
         dB_acc += vB;
       }
       if (a.c_var) {
+#pragma unroll
         for (int off = NP; off < 32; off <<= 1) vC += __shfl_xor_sync(0xffffffffu, vC, off);
-        if (lane < N) atomicAdd(&dC_s[lane * ld + t], vC);
+        if (lane < NP) part[((W + warp) * kS + j) * (NP + 1) + lane] = vC;
       } else {
         dC_acc += vC;
       }
@@ -258,6 +262,21 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
         }
       }
     }
+    if (a.b_var || a.c_var) {
+      // this block's partial of a varying dB / dC for the sub-chunk's
+      // tokens, summed over the warps in a fixed order, each (n, token)
+      // by one thread: row blockIdx.x of (B * spans * nDB, N, L)
+      __syncthreads();
+      for (int i = threadIdx.x; i < 2 * N * kS; i += blockDim.x) {
+        const int q = i / (N * kS), nn = i / kS % N, j = i % kS, gt = t0 + s * kS + j;
+        if (!(q ? a.c_var : a.b_var) || gt >= a.L) continue;
+        const float* p = part + q * W * pw + j * (NP + 1) + nn;
+        float sum = 0.f;
+        for (int w = 0; w < W; ++w) sum += p[w * pw];
+        (q ? o.p_dC : o.p_dB)[((size_t)blockIdx.x * N + nn) * a.L + gt] = sum;
+      }
+      __syncthreads();
+    }
   }
 #pragma unroll
   for (int off = NP / 2; off > 0; off >>= 1) {  // the owners' sums over the group
@@ -288,21 +307,14 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
     ddelta[off] = mmu::from_f32<TI>(dt_s[cj * ld + t]);
     if (has_z) dz[off] = mmu::from_f32<TI>(z_s[cj * ld + t]);
   }
-  // this block's partial of a varying dB / dC: row blockIdx.x of (B * spans * nDB, N, L)
-  for (int i = threadIdx.x; i < N * T; i += blockDim.x) {
-    const int nn = i / T, t = i - nn * T, gt = t0 + t;
-    if (gt >= a.L) continue;
-    const size_t off = ((size_t)blockIdx.x * N + nn) * a.L + gt;
-    if (a.b_var) o.p_dB[off] = dB_s[nn * ld + t];
-    if (a.c_var) o.p_dC[off] = dC_s[nn * ld + t];
-  }
 }
 
 template <typename TI, typename TB, int NP>
 cudaError_t launch_chunk(const ScanArgs& a, const BwdOut& o, dim3 grid, int threads,
                          cudaStream_t stream) {
-  const size_t smem = ((size_t)(5 * a.chans + 2 * NP + 2 * a.N) * (a.T + 1) +
-                       (size_t)(a.T / kS) * threads) * sizeof(float);
+  const size_t smem = ((size_t)(5 * a.chans + 2 * NP) * (a.T + 1) +
+                       (size_t)(a.T / kS) * threads + 2 * (threads / 32) * kS * (NP + 1)) *
+                      sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(scan_bwd_chunk_kernel<TI, TB, NP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);

@@ -82,13 +82,15 @@ def _smem_bytes(n: int, NP: int, chans: int, T: int) -> dict:
     """Dynamic shared memory, in bytes, that each chunk pass asks for at one
     block of `chans` channels and chunks of T tokens (as the launches in
     `csrc/selective_scan_{fwd,bwd}.cu` compute it): rows of T + 1 floats per
-    channel and per state, and pass C's entry state of each thread's every
-    sub-chunk of 16 tokens."""
-    rows = T + 1
+    channel and per state; pass C's entry state of each thread's every
+    sub-chunk of 16 tokens, and each warp's dB and dC terms of one
+    sub-chunk in rows of NP + 1 floats."""
+    rows, threads = T + 1, chans * NP
     return {"fwd_local": (2 * chans + n) * rows * 4,
             "fwd_final": (2 * chans + 2 * n) * rows * 4,
             "bwd_local": (2 * chans + NP) * rows * 4,
-            "bwd_chunk": ((5 * chans + 2 * NP + 2 * n) * rows + T // 16 * chans * NP) * 4}
+            "bwd_chunk": ((5 * chans + 2 * NP) * rows + T // 16 * threads
+                          + 2 * (threads // 32) * 16 * (NP + 1)) * 4}
 
 
 def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> _Plan:
