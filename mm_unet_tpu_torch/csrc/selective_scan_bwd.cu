@@ -27,15 +27,36 @@
 //   B. a small kernel walks the chunks backwards per (b, d, n), turning the
 //      local boundary adjoints into true carries (a chunk's decay is
 //      exp(A * sum dt), the forward's saved sum);
-//   C. each block rebuilds h across its chunk from the saved entry state
-//      into a per-thread buffer, walks back with g from the true carry, and
-//      accumulates every term: sums over the states by shuffles inside the
-//      NP-lane group of a channel; sums over channels of a varying dB / dC
-//      pre-summed across the warp and added with one shared-memory atomic per
-//      (n, t); per-parameter sums as per-thread registers. Parameter and
-//      dB / dC sums leave as per-block partials in f32, which the wrapper
-//      adds up (no global atomics: the result does not depend on the order
-//      blocks run in).
+//   C. each block rebuilds h across its chunk from the saved entry state,
+//      walks back with g from the true carry, and accumulates every term.
+// Parameter and dB / dC sums leave as per-block partials in f32, which the
+// wrapper adds up (no atomics anywhere: the result does not depend on the
+// order blocks or warps run in).
+//
+// What holds it back is not device memory (its bytes take a few percent of
+// its time) but pass C's shared-memory and shuffle traffic and its
+// dependent chains. One thread walks one (channel, state) chain; per token
+// it reads dt, u, dy, B and C, and its terms are summed over the N states
+// (du, ddt, dz) and over the block's channels (a varying dB, dC). Pass C
+// cuts that traffic four ways (the fused Mamba backward's pass C, in
+// mamba_fused_bwd.cu, takes the first three too):
+//   - rows of T + 1 floats (selective_scan.cuh): the N state lanes of a
+//     channel that read B or C at one token hit N distinct banks;
+//   - h in registers: the chunk is walked in sub-chunks of kS tokens; a
+//     first walk keeps the state entering each sub-chunk in shared memory,
+//     and each sub-chunk's states and decays are rebuilt into unrolled
+//     register arrays just before its adjoint walk (no local-memory buffer);
+//   - sums over the states by the scattering butterfly (group_sum_scatter,
+//     mamba_chunk.cuh): kS - 1 shuffles per quantity and sub-chunk where a
+//     sum per token takes kS log2 NP; each owner lane then writes du, ddt
+//     and dz for its tokens. It is templated on NP, the state lanes rounded
+//     up to a power of two, with the lanes past N holding zeros;
+//   - dB / dC over the block's channels without atomics (sm_90 has no
+//     shared float add: a shared atomicAdd is a compare-and-swap loop): per
+//     token the warp sums its channels by shuffles and its first lane group
+//     writes the warp's cell of a per-sub-chunk buffer; after a barrier each
+//     (state, token) is summed over the warps in a fixed order by one thread
+//     and stored as the block's partial.
 #include <cstdint>
 
 #include "common.cuh"
@@ -44,6 +65,7 @@
 
 namespace {
 
+using mmu::kAhead;
 using mmu::kS;  // tokens per sub-chunk of pass C, whose states live in registers
 using mmu::ScanArgs;
 
@@ -101,29 +123,45 @@ __global__ void __launch_bounds__(512) scan_bwd_local_kernel(ScanArgs a, BwdOut 
   const float Cc = a.c_var ? 0.f : mmu::bc_const<TB>(a.Cm, a.cs, d, n);
   const float* dts = dt_s + ci * ld;
   const float* dys = dy_s + ci * ld;
+  const float* Cn = C_s + n * ld;
   float carry = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    const float g = dys[t] * (a.c_var ? C_s[n * ld + t] : Cc) + carry;
-    carry = expf(dts[t] * a_dn) * g;
+  for (int s = T - kS; s >= 0; s -= kS) {
+#pragma unroll
+    for (int j = kS - 1; j >= 0; --j) {
+      const float g = dys[s + j] * (a.c_var ? Cn[s + j] : Cc) + carry;
+      carry = expf(dts[s + j] * a_dn) * g;
+    }
   }
   o.gcarry[(((size_t)k.b * a.nC + c) * a.Dm + d) * N + n] = carry;
 }
 
 // Pass B: local boundary adjoints -> the true adjoint entering each chunk
-// from the chunk after it.
-__global__ void scan_bwd_combine_kernel(ScanArgs a, BwdOut o) {
+// from the chunk after it. The walk is one dependent chain per (b, d, n)
+// with a load per chunk: the loads of kAhead chunks are issued together, so
+// a chain waits on memory once per kAhead chunks.
+__global__ void __launch_bounds__(128) scan_bwd_combine_kernel(ScanArgs a, BwdOut o) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)a.Bsz * a.Dm * a.N) return;
   const int n = i % a.N, d = (i / a.N) % a.Dm;
   const int64_t b = i / ((int64_t)a.Dm * a.N);
   const float a_dn = a.A[(size_t)d * a.N + n];
   float carry = 0.f;
-  for (int c = a.nC - 1; c >= 0; --c) {
-    const size_t sc = (size_t)b * a.nC + c;
-    const size_t k = (sc * a.Dm + d) * a.N + n;
-    const float local = o.gcarry[k];
-    o.gcarry[k] = carry;
-    carry = local + expf(a_dn * a.dtsum[sc * a.Dm + d]) * carry;
+  for (int s0 = 0; s0 < a.nC; s0 += kAhead) {
+    float local[kAhead], dts[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const size_t sc = (size_t)b * a.nC + (a.nC - 1 - s0 - j);  // against the scan direction
+      local[j] = s0 + j < a.nC ? o.gcarry[(sc * a.Dm + d) * a.N + n] : 0.f;
+      dts[j] = s0 + j < a.nC ? a.dtsum[sc * a.Dm + d] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (s0 + j < a.nC) {
+        const size_t sc = (size_t)b * a.nC + (a.nC - 1 - s0 - j);
+        o.gcarry[(sc * a.Dm + d) * a.N + n] = carry;
+        carry = local[j] + expf(a_dn * dts[j]) * carry;
+      }
+    }
   }
 }
 
@@ -335,7 +373,7 @@ int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     scan_bwd_local_kernel<TI, TB><<<grid, threads, smem_local, stream>>>(a, o);
     const int64_t chains = (int64_t)a.Bsz * a.Dm * a.N;
-    scan_bwd_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a, o);
+    scan_bwd_combine_kernel<<<(unsigned)((chains + 127) / 128), 128, 0, stream>>>(a, o);
   }
   switch (a.NP) {
     case 1: err = launch_chunk<TI, TB, 1>(a, o, grid, threads, stream); break;

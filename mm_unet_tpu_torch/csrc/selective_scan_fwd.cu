@@ -27,68 +27,118 @@
 //   3. each block rescans its chunk from its entry state and writes the
 //      output; the last chunk's final state is the last state.
 // u, dt and the group's B/C chunk are staged in shared memory once per pass,
-// read coalesced along L; C . h is a shuffle reduction inside the NP-lane
-// group of a channel.
+// read coalesced along L, in rows of T + 1 floats (the N state lanes of a
+// channel read their B or C rows at one token in distinct banks). Pass 3
+// walks its chunk in sub-chunks of kS tokens, keeps each lane's C . h terms
+// of a sub-chunk in registers and sums them over the state group by the
+// scattering butterfly (group_sum_scatter, mamba_chunk.cuh; kS - 1 shuffles
+// where a sum per token takes kS log2 NP), templated on NP, the state lanes
+// rounded up to a power of two with the lanes past N holding zeros. Pass 2
+// issues the loads of kAhead chunks together.
 #include <cstdint>
 
 #include "common.cuh"
+#include "mamba_chunk.cuh"
 #include "selective_scan.cuh"
 
 namespace {
 
+using mmu::kAhead;
+using mmu::kS;  // tokens per sub-chunk of pass 3, whose C . h terms live in registers
 using mmu::ScanArgs;
 
-// FINAL = false: pass 1 (zero entry state; emit end state and sum of dt).
-// FINAL = true: pass 3 (entry state from the combine; emit the output).
-template <typename TI, typename TB, bool FINAL>
-__global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, float* last) {
+// Pass 1: each block scans its chunk from a zero state and keeps the end
+// state and the chunk's sum of dt (no sums over the states: dead lanes leave).
+template <typename TI, typename TB>
+__global__ void __launch_bounds__(512) scan_fwd_local_kernel(ScanArgs a) {
   extern __shared__ float smem[];
   const int T = a.T, N = a.N, NP = a.NP, CH = a.chans, ld = T + 1;
-  float* u_s = smem;             // [CH][T + 1] u
-  float* dt_s = u_s + CH * ld;   // [CH][T + 1] dt; pass 3 overwrites it with C . h
-  float* B_s = dt_s + CH * ld;   // [N][T + 1] varying B
-  float* C_s = B_s + N * ld;     // [N][T + 1] varying C (pass 3)
+  float* u_s = smem;            // [CH][T + 1] u
+  float* dt_s = u_s + CH * ld;  // [CH][T + 1] dt
+  float* B_s = dt_s + CH * ld;  // [N][T + 1] varying B
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
   mmu::stage_dt<TI>(a, k, t0, dt_s);
   if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, N, B_s);
-  if (FINAL && a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, N, C_s);
+  __syncthreads();
+  const int ci = threadIdx.x / NP, n = threadIdx.x % NP;
+  if (ci >= k.live || n >= N) return;
+  const int d = k.d0 + ci;
+  const float a_dn = a.A[(size_t)d * N + n];
+  const float Bc = a.b_var ? 0.f : mmu::bc_const<TB>(a.Bm, a.bs, d, n);
+  const float* dts = dt_s + ci * ld;
+  const float* us = u_s + ci * ld;
+  const float* Bn = B_s + n * ld;
+  float h = 0.f, sum_dt = 0.f;
+  for (int s = 0; s < T; s += kS) {
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      const float dtv = dts[s + j];
+      h = expf(dtv * a_dn) * h + dtv * us[s + j] * (a.b_var ? Bn[s + j] : Bc);
+      sum_dt += dtv;
+    }
+  }
+  const size_t sidx = (((size_t)k.b * a.nC + c) * a.Dm + d) * N + n;
+  a.state[sidx] = h;
+  if (n == 0) a.dtsum[((size_t)k.b * a.nC + c) * a.Dm + d] = sum_dt;
+}
+
+// Pass 3: each block rescans its chunk from its entry state and writes the
+// output. NP is the lanes of a channel's state group (N rounded up to a
+// power of two); C . h is summed over them per sub-chunk of kS tokens by the
+// scattering butterfly.
+template <typename TI, typename TB, int NP>
+__global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, float* last) {
+  extern __shared__ float smem[];
+  const int T = a.T, N = a.N, CH = a.chans, ld = T + 1;
+  float* u_s = smem;            // [CH][T + 1] u
+  float* dt_s = u_s + CH * ld;  // [CH][T + 1] dt, overwritten with C . h
+  float* B_s = dt_s + CH * ld;  // [NP][T + 1] varying B, rows past N zero
+  float* C_s = B_s + NP * ld;   // [NP][T + 1] varying C
+  const mmu::Blk k = mmu::block_of(a);
+  const int c = blockIdx.y, t0 = c * T;
+  mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
+  mmu::stage_dt<TI>(a, k, t0, dt_s);
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, NP, B_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
   __syncthreads();
 
   // one thread per (channel ci, state n); every lane runs the loop (dead
   // lanes with zero inputs), so the shuffles always see whole warps
-  const int ci = threadIdx.x / NP, n = threadIdx.x - ci * NP;
+  constexpr int kNe = NP < kS ? NP : kS;  // lanes of a group that end with distinct sums
+  constexpr int kRep = NP / kNe;          // lanes that hold each of them
+  const int ci = threadIdx.x / NP, n = threadIdx.x % NP, lane = threadIdx.x & 31;
   const bool live = ci < k.live && n < N;
   const int d = k.d0 + ci;
   const float a_dn = live ? a.A[(size_t)d * N + n] : 0.f;
   const float Bc = (live && !a.b_var) ? mmu::bc_const<TB>(a.Bm, a.bs, d, n) : 0.f;
-  const float Cc = (FINAL && live && !a.c_var) ? mmu::bc_const<TB>(a.Cm, a.cs, d, n) : 0.f;
+  const float Cc = (live && !a.c_var) ? mmu::bc_const<TB>(a.Cm, a.cs, d, n) : 0.f;
   const size_t sidx = (((size_t)k.b * a.nC + c) * a.Dm + d) * N + n;
-  float h = 0.f, sum_dt = 0.f;
-  if (FINAL && live) {
+  float h = 0.f;
+  if (live) {
     if (a.nC > 1) h = a.state[sidx];
     else a.state[sidx] = 0.f;  // one chunk: no pass 1; the backward reads a zero entry state
   }
   float* dts = dt_s + ci * ld;
   const float* us = u_s + ci * ld;
-  for (int t = 0; t < T; ++t) {
-    const float dtv = dts[t];
-    const float Bv = a.b_var ? (n < N ? B_s[n * ld + t] : 0.f) : Bc;
-    h = expf(dtv * a_dn) * h + dtv * us[t] * Bv;
-    if (FINAL) {
-      float yp = h * (a.c_var ? (n < N ? C_s[n * ld + t] : 0.f) : Cc);
-      for (int off = NP / 2; off > 0; off >>= 1) yp += __shfl_xor_sync(0xffffffffu, yp, off);
-      // every lane of the group has read dt[ci][t] before the shuffle
-      if (n == 0) dts[t] = yp;
-    } else {
-      sum_dt += dtv;
+  const float* Bn = B_s + n * ld;
+  const float* Cn = C_s + n * ld;
+  for (int s = 0; s < T; s += kS) {
+    float yp[kS];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      const float dtv = dts[s + j];
+      h = expf(dtv * a_dn) * h + dtv * us[s + j] * (a.b_var ? Bn[s + j] : Bc);
+      yp[j] = h * (a.c_var ? Cn[s + j] : Cc);
     }
-  }
-  if (!FINAL) {
-    if (live) a.state[sidx] = h;
-    if (live && n == 0) a.dtsum[((size_t)k.b * a.nC + c) * a.Dm + d] = sum_dt;
-    return;
+    // every lane of the group has read the sub-chunk's dt: the sums' owners
+    // overwrite it with C . h
+    mmu::group_sum_scatter<NP>(yp, lane);
+    if (n % kRep == 0) {
+#pragma unroll
+      for (int i = 0; i < kS / kNe; ++i) dts[s + n / kRep * (kS / kNe) + i] = yp[i];
+    }
   }
   if (last && live && c == a.nC - 1) last[((size_t)k.b * a.Dm + d) * N + n] = h;
   __syncthreads();
@@ -109,42 +159,69 @@ __global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, fl
 }
 
 // Pass 2: for each (b, d, n), walk the chunks in order and replace each
-// chunk's zero-entry end state by its true entry state.
-__global__ void scan_combine_kernel(ScanArgs a) {
+// chunk's zero-entry end state by its true entry state. The walk is one
+// dependent chain with a load per chunk: the loads of kAhead chunks are
+// issued together, so a chain waits on memory once per kAhead chunks.
+__global__ void __launch_bounds__(128) scan_combine_kernel(ScanArgs a) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)a.Bsz * a.Dm * a.N) return;
   const int n = i % a.N, d = (i / a.N) % a.Dm;
   const int64_t b = i / ((int64_t)a.Dm * a.N);
   const float a_dn = a.A[(size_t)d * a.N + n];
   float carry = 0.f;
-  for (int c = 0; c < a.nC; ++c) {
-    const size_t sc = (size_t)b * a.nC + c;
-    const size_t k = (sc * a.Dm + d) * a.N + n;
-    const float h_end = a.state[k];
-    const float decay = expf(a_dn * a.dtsum[sc * a.Dm + d]);
-    a.state[k] = carry;
-    carry = decay * carry + h_end;
+  for (int c0 = 0; c0 < a.nC; c0 += kAhead) {
+    float h_end[kAhead], dts[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const size_t sc = (size_t)b * a.nC + c0 + j;
+      h_end[j] = c0 + j < a.nC ? a.state[(sc * a.Dm + d) * a.N + n] : 0.f;
+      dts[j] = c0 + j < a.nC ? a.dtsum[sc * a.Dm + d] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (c0 + j < a.nC) {
+        a.state[(((size_t)b * a.nC + c0 + j) * a.Dm + d) * a.N + n] = carry;
+        carry = expf(a_dn * dts[j]) * carry + h_end[j];
+      }
+    }
   }
+}
+
+template <typename TI, typename TB, int NP>
+cudaError_t launch_final(const ScanArgs& a, void* out, float* last, dim3 grid, int threads,
+                 cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * a.chans + 2 * NP) * (a.T + 1) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(scan_fwd_kernel<TI, TB, NP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+  if (err != cudaSuccess) return err;
+  scan_fwd_kernel<TI, TB, NP><<<grid, threads, smem, stream>>>(a, out, last);
+  return cudaSuccess;
 }
 
 template <typename TI, typename TB>
 int launch(const ScanArgs& a, void* out, float* last, cudaStream_t stream) {
   const dim3 grid(a.Bsz * (a.Dm / a.span) * a.nDB, a.nC);
   const int threads = a.chans * a.NP;
-  const size_t smem = (size_t)(2 * a.chans + 2 * a.N) * (a.T + 1) * sizeof(float);
   cudaError_t err;
   if (a.nC > 1) {
-    err = cudaFuncSetAttribute(scan_fwd_kernel<TI, TB, false>,
+    const size_t smem = (size_t)(2 * a.chans + a.N) * (a.T + 1) * sizeof(float);
+    err = cudaFuncSetAttribute(scan_fwd_local_kernel<TI, TB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    scan_fwd_kernel<TI, TB, false><<<grid, threads, smem, stream>>>(a, out, last);
+    scan_fwd_local_kernel<TI, TB><<<grid, threads, smem, stream>>>(a);
     const int64_t chains = (int64_t)a.Bsz * a.Dm * a.N;
-    scan_combine_kernel<<<(unsigned)((chains + 255) / 256), 256, 0, stream>>>(a);
+    scan_combine_kernel<<<(unsigned)((chains + 127) / 128), 128, 0, stream>>>(a);
   }
-  err = cudaFuncSetAttribute(scan_fwd_kernel<TI, TB, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  switch (a.NP) {
+    case 1: err = launch_final<TI, TB, 1>(a, out, last, grid, threads, stream); break;
+    case 2: err = launch_final<TI, TB, 2>(a, out, last, grid, threads, stream); break;
+    case 4: err = launch_final<TI, TB, 4>(a, out, last, grid, threads, stream); break;
+    case 8: err = launch_final<TI, TB, 8>(a, out, last, grid, threads, stream); break;
+    case 16: err = launch_final<TI, TB, 16>(a, out, last, grid, threads, stream); break;
+    default: err = launch_final<TI, TB, 32>(a, out, last, grid, threads, stream); break;
+  }
   if (err != cudaSuccess) return err;
-  scan_fwd_kernel<TI, TB, true><<<grid, threads, smem, stream>>>(a, out, last);
   return cudaGetLastError();
 }
 

@@ -87,7 +87,7 @@ def _smem_bytes(n: int, NP: int, chans: int, T: int) -> dict:
     sub-chunk in rows of NP + 1 floats."""
     rows, threads = T + 1, chans * NP
     return {"fwd_local": (2 * chans + n) * rows * 4,
-            "fwd_final": (2 * chans + 2 * n) * rows * 4,
+            "fwd_final": (2 * chans + 2 * NP) * rows * 4,
             "bwd_local": (2 * chans + NP) * rows * 4,
             "bwd_chunk": ((5 * chans + 2 * NP) * rows + T // 16 * threads
                           + 2 * (threads // 32) * 16 * (NP + 1)) * 4}
