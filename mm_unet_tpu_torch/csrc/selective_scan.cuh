@@ -17,10 +17,12 @@
 // masked as identity steps of the scan (dt = u = B = 0), with no padding.
 //
 // Shared-memory rows. Every per-chunk row (a channel's u, dt, dout, z, or a
-// state's B, C) takes T + 1 floats: with T a multiple of 16, the odd row
-// length puts the N state lanes of a channel that read their B or C rows at
-// one token, and neighbouring channels reading their own rows, in distinct
-// banks (rows of T floats put them all in one bank).
+// state's B, C) takes ld floats, ld = T + 1 or T + 4 with T a multiple of
+// 16, so that the N state lanes of a channel that read their B or C rows at
+// one token, and neighbouring channels reading their own rows, fall in
+// distinct banks (rows of T floats put them all in one bank). A kernel that
+// reads four tokens of a row at once (`quad`) takes T + 4: 16-byte aligned,
+// two wavefronts for four tokens of the 16 state rows.
 #pragma once
 
 #include <cstdint>
@@ -28,6 +30,15 @@
 #include "common.cuh"
 
 namespace mmu {
+
+// four consecutive tokens of a row (t % 4 == 0: 16-byte aligned)
+struct Quad {
+  float v[4];
+};
+__device__ __forceinline__ Quad quad(const float* p) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  return {{f.x, f.y, f.z, f.w}};
+}
 
 struct ScanArgs {
   const void* u;       // (B, Dm, L) stream dtype
@@ -65,21 +76,22 @@ __device__ __forceinline__ Blk block_of(const ScanArgs& a) {
   return k;
 }
 
-// one (B, Dm, L) stream's rows of the block into s [chans][T + 1] (f32), 0
+// one (B, Dm, L) stream's rows of the block into s [chans][ld] (f32), 0
 // past L and for channels past the span
 template <typename TI>
-__device__ void stage_rows(const ScanArgs& a, const Blk& k, const void* p, int t0, float* s) {
+__device__ void stage_rows(const ScanArgs& a, const Blk& k, const void* p, int t0, int ld,
+                           float* s) {
   const TI* x = static_cast<const TI*>(p);
   for (int i = threadIdx.x; i < a.chans * a.T; i += blockDim.x) {
     const int c = i / a.T, t = i - c * a.T, gt = t0 + t;
-    s[c * (a.T + 1) + t] =
+    s[c * ld + t] =
         (c < k.live && gt < a.L) ? to_f32(x[((size_t)k.b * a.Dm + k.d0 + c) * a.L + gt]) : 0.f;
   }
 }
 
-// dt_s [chans][T + 1] = softplus?(delta + bias), 0 past L (an identity step)
+// dt_s [chans][ld] = softplus?(delta + bias), 0 past L (an identity step)
 template <typename TI>
-__device__ void stage_dt(const ScanArgs& a, const Blk& k, int t0, float* dt_s) {
+__device__ void stage_dt(const ScanArgs& a, const Blk& k, int t0, int ld, float* dt_s) {
   const TI* x = static_cast<const TI*>(a.delta);
   for (int i = threadIdx.x; i < a.chans * a.T; i += blockDim.x) {
     const int c = i / a.T, t = i - c * a.T, gt = t0 + t;
@@ -89,19 +101,19 @@ __device__ void stage_dt(const ScanArgs& a, const Blk& k, int t0, float* dt_s) {
       if (a.bias) v += a.bias[k.d0 + c];
       if (a.softplus) v = softplus(v);
     }
-    dt_s[c * (a.T + 1) + t] = v;
+    dt_s[c * ld + t] = v;
   }
 }
 
-// s [rows][T + 1] = the block's group of a varying B or C, 0 past L and in
-// the rows past N
+// s [rows][ld] = the block's group of a varying B or C, 0 past L, in the
+// rows past N, and everywhere for p == nullptr
 template <typename TB>
 __device__ void stage_bc(const ScanArgs& a, const Blk& k, const void* p, const int64_t* st,
-                         int gdiv, int t0, int rows, float* s) {
-  const TB* x = static_cast<const TB*>(p) + st[0] * k.b + st[1] * (k.d0 / gdiv);
+                         int gdiv, int t0, int ld, int rows, float* s) {
+  const TB* x = p ? static_cast<const TB*>(p) + st[0] * k.b + st[1] * (k.d0 / gdiv) : nullptr;
   for (int i = threadIdx.x; i < rows * a.T; i += blockDim.x) {
     const int n = i / a.T, t = i - n * a.T, gt = t0 + t;
-    s[n * (a.T + 1) + t] = (n < a.N && gt < a.L) ? to_f32(x[st[2] * n + st[3] * gt]) : 0.f;
+    s[n * ld + t] = (p && n < a.N && gt < a.L) ? to_f32(x[st[2] * n + st[3] * gt]) : 0.f;
   }
 }
 

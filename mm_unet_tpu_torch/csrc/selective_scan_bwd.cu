@@ -39,9 +39,12 @@
 // it reads dt, u, dy, B and C, and its terms are summed over the N states
 // (du, ddt, dz) and over the block's channels (a varying dB, dC). Pass C
 // cuts that traffic four ways (the fused Mamba backward's pass C, in
-// mamba_fused_bwd.cu, takes the first three too):
-//   - rows of T + 1 floats (selective_scan.cuh): the N state lanes of a
-//     channel that read B or C at one token hit N distinct banks;
+// mamba_fused_bwd.cu, takes the first three in its own form):
+//   - rows of T + 4 floats (selective_scan.cuh) read four tokens per
+//     16-byte load: the 16 state lanes of a channel that read B or C take
+//     two wavefronts for four tokens, a warp's channel rows one; a constant
+//     B or C is read as zero rows plus the lane's constant, so no walk
+//     branches on the layout;
 //   - h in registers: the chunk is walked in sub-chunks of kS tokens; a
 //     first walk keeps the state entering each sub-chunk in shared memory,
 //     and each sub-chunk's states and decays are rebuilt into unrolled
@@ -54,9 +57,10 @@
 //   - dB / dC over the block's channels without atomics (sm_90 has no
 //     shared float add: a shared atomicAdd is a compare-and-swap loop): per
 //     token the warp sums its channels by shuffles and its first lane group
-//     writes the warp's cell of a per-sub-chunk buffer; after a barrier each
+//     writes the warp's cell of a sub-chunk buffer; after a barrier each
 //     (state, token) is summed over the warps in a fixed order by one thread
-//     and stored as the block's partial.
+//     and stored as the block's partial. The buffer is doubled, so one
+//     barrier per sub-chunk suffices.
 #include <cstdint>
 
 #include "common.cuh"
@@ -84,9 +88,9 @@ struct BwdOut {
   float* p_dC;
 };
 
-// dy_s [CH][T + 1] = dout * silu(z) (dout without z), 0 past L
+// dy_s [CH][T + 4] = dout * silu(z) (dout without z), 0 past L
 template <typename TI>
-__device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, int t0,
+__device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, int t0, int ld,
                          float* dy_s) {
   const TI* dout = static_cast<const TI*>(o.dout);
   const TI* z = static_cast<const TI*>(a.z);
@@ -98,7 +102,7 @@ __device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, 
       v = mmu::to_f32(dout[off]);
       if (z) v *= mmu::silu(mmu::to_f32(z[off]));
     }
-    dy_s[c * (a.T + 1) + t] = v;
+    dy_s[c * ld + t] = v;
   }
 }
 
@@ -106,15 +110,15 @@ __device__ void stage_dy(const ScanArgs& a, const BwdOut& o, const mmu::Blk& k, 
 template <typename TI, typename TB>
 __global__ void __launch_bounds__(512) scan_bwd_local_kernel(ScanArgs a, BwdOut o) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, NP = a.NP, ld = T + 1;
-  float* dt_s = smem;                 // [CH][T + 1]
-  float* dy_s = dt_s + a.chans * ld;  // [CH][T + 1]
-  float* C_s = dy_s + a.chans * ld;   // [N][T + 1] varying C
+  const int T = a.T, N = a.N, NP = a.NP, ld = T + 4;
+  float* dt_s = smem;                 // [CH][T + 4]
+  float* dy_s = dt_s + a.chans * ld;  // [CH][T + 4]
+  float* C_s = dy_s + a.chans * ld;   // [NP][T + 4] varying C
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
-  mmu::stage_dt<TI>(a, k, t0, dt_s);
-  stage_dy<TI>(a, o, k, t0, dy_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
+  mmu::stage_dt<TI>(a, k, t0, ld, dt_s);
+  stage_dy<TI>(a, o, k, t0, ld, dy_s);
+  mmu::stage_bc<TB>(a, k, a.c_var ? a.Cm : nullptr, a.cs, a.c_gdiv, t0, ld, NP, C_s);
   __syncthreads();
   const int ci = threadIdx.x / NP, n = threadIdx.x - ci * NP;
   if (ci >= k.live || n >= N) return;  // no shuffles in this pass
@@ -127,9 +131,14 @@ __global__ void __launch_bounds__(512) scan_bwd_local_kernel(ScanArgs a, BwdOut 
   float carry = 0.f;
   for (int s = T - kS; s >= 0; s -= kS) {
 #pragma unroll
-    for (int j = kS - 1; j >= 0; --j) {
-      const float g = dys[s + j] * (a.c_var ? Cn[s + j] : Cc) + carry;
-      carry = expf(dts[s + j] * a_dn) * g;
+    for (int q = kS - 4; q >= 0; q -= 4) {
+      const mmu::Quad dt4 = mmu::quad(dts + s + q), dy4 = mmu::quad(dys + s + q);
+      const mmu::Quad c4 = mmu::quad(Cn + s + q);
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const float g = dy4.v[j] * (c4.v[j] + Cc) + carry;
+        carry = expf(dt4.v[j] * a_dn) * g;
+      }
     }
   }
   o.gcarry[(((size_t)k.b * a.nC + c) * a.Dm + d) * N + n] = carry;
@@ -170,28 +179,31 @@ __global__ void __launch_bounds__(128) scan_bwd_combine_kernel(ScanArgs a, BwdOu
 template <typename TI, typename TB, int NP>
 __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut o) {
   extern __shared__ float smem[];
-  const int T = a.T, N = a.N, CH = a.chans, ld = T + 1, nsub = T / kS;
-  float* u_s = smem;             // [CH][T + 1] u, then du
-  float* dt_s = u_s + CH * ld;   // [CH][T + 1] dt, then ddelta
-  float* dy_s = dt_s + CH * ld;  // [CH][T + 1] dy = dout * silu(z)
-  float* do_s = dy_s + CH * ld;  // [CH][T + 1] dout (with z)
-  float* z_s = do_s + CH * ld;   // [CH][T + 1] z, then dz (with z)
-  float* B_s = z_s + CH * ld;    // [NP][T + 1] varying B, rows past N zero
-  float* C_s = B_s + NP * ld;    // [NP][T + 1] varying C
+  const int T = a.T, N = a.N, CH = a.chans, ld = T + 4, nsub = T / kS;
+  float* u_s = smem;             // [CH][T + 4] u, then du
+  float* dt_s = u_s + CH * ld;   // [CH][T + 4] dt, then ddelta
+  float* dy_s = dt_s + CH * ld;  // [CH][T + 4] dy = dout * silu(z)
+  float* do_s = dy_s + CH * ld;  // [CH][T + 4] dout (with z)
+  float* z_s = do_s + CH * ld;   // [CH][T + 4] z, then dz (with z)
+  float* B_s = z_s + CH * ld;    // [NP][T + 4] varying B, rows past N zero
+  float* C_s = B_s + NP * ld;    // [NP][T + 4] varying C
   float* ck_s = C_s + NP * ld;   // [T / kS][blockDim] each thread's sub-chunk entry states
-  // [2][warps][kS][NP + 1]: each warp's terms of dB and dC for one sub-chunk,
-  // summed over its channels (odd rows: the block's sum reads them by token)
+  // [2 sub-chunks][2][warps][kS][NP + 1]: each warp's terms of dB and dC for
+  // a sub-chunk, summed over its channels (odd rows: the block's sum reads
+  // them by token), double-buffered over the sub-chunks
   const int W = blockDim.x / 32, pw = kS * (NP + 1);
   float* part = ck_s + nsub * blockDim.x;
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
   const bool has_z = a.z != nullptr;
-  mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
-  mmu::stage_dt<TI>(a, k, t0, dt_s);
-  mmu::stage_rows<TI>(a, k, o.dout, t0, has_z ? do_s : dy_s);
-  if (has_z) mmu::stage_rows<TI>(a, k, a.z, t0, z_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, NP, B_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
+  mmu::stage_rows<TI>(a, k, a.u, t0, ld, u_s);
+  mmu::stage_dt<TI>(a, k, t0, ld, dt_s);
+  mmu::stage_rows<TI>(a, k, o.dout, t0, ld, has_z ? do_s : dy_s);
+  if (has_z) mmu::stage_rows<TI>(a, k, a.z, t0, ld, z_s);
+  // a constant B or C reads zero rows plus its per-thread constant, so that
+  // the walks below take no branch on the layout
+  mmu::stage_bc<TB>(a, k, a.b_var ? a.Bm : nullptr, a.bs, a.b_gdiv, t0, ld, NP, B_s);
+  mmu::stage_bc<TB>(a, k, a.c_var ? a.Cm : nullptr, a.cs, a.c_gdiv, t0, ld, NP, C_s);
   __syncthreads();
   if (has_z) {  // dy once per (channel, token), not once per state lane
     for (int i = threadIdx.x; i < CH * ld; i += blockDim.x) dy_s[i] = do_s[i] * mmu::silu(z_s[i]);
@@ -227,10 +239,13 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   for (int s = 0; s < nsub; ++s) {
     ck_s[s * blockDim.x + threadIdx.x] = h;
 #pragma unroll
-    for (int j = 0; j < kS; ++j) {
-      const int t = s * kS + j;
-      const float dtv = dts[t];
-      h = expf(dtv * a_dn) * h + dtv * us[t] * (a.b_var ? Bn[t] : Bc);
+    for (int q = 0; q < kS; q += 4) {
+      const int t = s * kS + q;
+      const mmu::Quad dt4 = mmu::quad(dts + t), u4 = mmu::quad(us + t);
+      const mmu::Quad b4 = mmu::quad(Bn + t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h = expf(dt4.v[j] * a_dn) * h + dt4.v[j] * u4.v[j] * (b4.v[j] + Bc);
     }
   }
   float carry = (live && a.nC > 1) ? o.gcarry[sidx] : 0.f;
@@ -238,45 +253,53 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   for (int s = nsub - 1; s >= 0; --s) {  // sub-chunks against the scan direction
     // rebuild the sub-chunk's states and decays into registers
     float hr[kS], ar[kS], pa[kS];
+    float* pb = part + (s & 1) * 2 * W * pw;
     h = ck_s[s * blockDim.x + threadIdx.x];
 #pragma unroll
-    for (int j = 0; j < kS; ++j) {
-      const int t = s * kS + j;
-      const float dtv = dts[t];
-      ar[j] = expf(dtv * a_dn);
-      h = ar[j] * h + dtv * us[t] * (a.b_var ? Bn[t] : Bc);
-      hr[j] = h;
+    for (int q = 0; q < kS; q += 4) {
+      const int t = s * kS + q;
+      const mmu::Quad dt4 = mmu::quad(dts + t), u4 = mmu::quad(us + t);
+      const mmu::Quad b4 = mmu::quad(Bn + t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ar[q + j] = expf(dt4.v[j] * a_dn);
+        h = ar[q + j] * h + dt4.v[j] * u4.v[j] * (b4.v[j] + Bc);
+        hr[q + j] = h;
+      }
     }
     // the adjoint: g and this lane's terms per token; the sums over the
     // warp's channels at once (each warp its own cells of `part`), the sums
     // over the states after the walk
 #pragma unroll
-    for (int j = kS - 1; j >= 0; --j) {
-      const int t = s * kS + j;
-      const float dtu = dts[t] * us[t], dyv = dys[t];
-      const float Bv = a.b_var ? Bn[t] : Bc, Cv = a.c_var ? Cn[t] : Cc;
-      const float g = dyv * Cv + carry;
-      const float gah = g * (hr[j] - dtu * Bv);  // g a h_prev
-      float vB = g * dtu, vC = hr[j] * dyv;
-      if (a.b_var) {
+    for (int q = kS - 4; q >= 0; q -= 4) {
+      const int t = s * kS + q;
+      const mmu::Quad dt4 = mmu::quad(dts + t), u4 = mmu::quad(us + t), dy4 = mmu::quad(dys + t);
+      const mmu::Quad b4 = mmu::quad(Bn + t), c4 = mmu::quad(Cn + t);
 #pragma unroll
-        for (int off = NP; off < 32; off <<= 1) vB += __shfl_xor_sync(0xffffffffu, vB, off);
-        if (lane < NP) part[(warp * kS + j) * (NP + 1) + lane] = vB;  // lane == n
-      } else {
-        dB_acc += vB;
-      }
-      if (a.c_var) {
-#pragma unroll
-        for (int off = NP; off < 32; off <<= 1) vC += __shfl_xor_sync(0xffffffffu, vC, off);
-        if (lane < NP) part[((W + warp) * kS + j) * (NP + 1) + lane] = vC;
-      } else {
+      for (int jj = 3; jj >= 0; --jj) {
+        const int j = q + jj;
+        const float dtu = dt4.v[jj] * u4.v[jj], dyv = dy4.v[jj];
+        const float Bv = b4.v[jj] + Bc, Cv = c4.v[jj] + Cc;
+        const float g = dyv * Cv + carry;
+        const float gah = g * (hr[j] - dtu * Bv);  // g a h_prev
+        float vB = g * dtu, vC = hr[j] * dyv;
+        dB_acc += vB;  // a constant B's and C's sums over the tokens
         dC_acc += vC;
+#pragma unroll
+        for (int off = NP; off < 32; off <<= 1) {
+          vB += __shfl_xor_sync(0xffffffffu, vB, off);
+          vC += __shfl_xor_sync(0xffffffffu, vC, off);
+        }
+        if (lane < NP) {  // lane == n
+          pb[(warp * kS + j) * (NP + 1) + lane] = vB;
+          pb[((W + warp) * kS + j) * (NP + 1) + lane] = vC;
+        }
+        dA_acc += gah * dt4.v[jj];
+        carry = ar[j] * g;
+        ar[j] = g * Bv;          // now the terms of sum_n g B,
+        pa[j] = gah * a_dn;      // sum_n g a h_prev A
+        hr[j] = hr[j] * Cv;      // and sum_n h C
       }
-      dA_acc += gah * dts[t];
-      carry = ar[j] * g;
-      ar[j] = g * Bv;          // now the terms of sum_n g B,
-      pa[j] = gah * a_dn;      // sum_n g a h_prev A
-      hr[j] = hr[j] * Cv;      // and sum_n h C
     }
     // every lane of the group has read u, dt and dy of the sub-chunk's
     // tokens: the sums' owners overwrite u and dt, and z with dz
@@ -308,12 +331,11 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
       for (int i = threadIdx.x; i < 2 * N * kS; i += blockDim.x) {
         const int q = i / (N * kS), nn = i / kS % N, j = i % kS, gt = t0 + s * kS + j;
         if (!(q ? a.c_var : a.b_var) || gt >= a.L) continue;
-        const float* p = part + q * W * pw + j * (NP + 1) + nn;
+        const float* p = pb + q * W * pw + j * (NP + 1) + nn;
         float sum = 0.f;
         for (int w = 0; w < W; ++w) sum += p[w * pw];
         (q ? o.p_dC : o.p_dB)[((size_t)blockIdx.x * N + nn) * a.L + gt] = sum;
       }
-      __syncthreads();
     }
   }
 #pragma unroll
@@ -350,8 +372,8 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
 template <typename TI, typename TB, int NP>
 cudaError_t launch_chunk(const ScanArgs& a, const BwdOut& o, dim3 grid, int threads,
                          cudaStream_t stream) {
-  const size_t smem = ((size_t)(5 * a.chans + 2 * NP) * (a.T + 1) +
-                       (size_t)(a.T / kS) * threads + 2 * (threads / 32) * kS * (NP + 1)) *
+  const size_t smem = ((size_t)(5 * a.chans + 2 * NP) * (a.T + 4) +
+                       (size_t)(a.T / kS) * threads + 4 * (threads / 32) * kS * (NP + 1)) *
                       sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(scan_bwd_chunk_kernel<TI, TB, NP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -365,7 +387,7 @@ template <typename TI, typename TB>
 int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
   const dim3 grid(a.Bsz * (a.Dm / a.span) * a.nDB, a.nC);
   const int threads = a.chans * a.NP;
-  const size_t smem_local = (size_t)(2 * a.chans + a.NP) * (a.T + 1) * sizeof(float);
+  const size_t smem_local = (size_t)(2 * a.chans + a.NP) * (a.T + 4) * sizeof(float);
   cudaError_t err;
   if (a.nC > 1) {
     err = cudaFuncSetAttribute(scan_bwd_local_kernel<TI, TB>,

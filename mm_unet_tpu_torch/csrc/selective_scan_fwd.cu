@@ -58,9 +58,9 @@ __global__ void __launch_bounds__(512) scan_fwd_local_kernel(ScanArgs a) {
   float* B_s = dt_s + CH * ld;  // [N][T + 1] varying B
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
-  mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
-  mmu::stage_dt<TI>(a, k, t0, dt_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, N, B_s);
+  mmu::stage_rows<TI>(a, k, a.u, t0, ld, u_s);
+  mmu::stage_dt<TI>(a, k, t0, ld, dt_s);
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, ld, N, B_s);
   __syncthreads();
   const int ci = threadIdx.x / NP, n = threadIdx.x % NP;
   if (ci >= k.live || n >= N) return;
@@ -98,10 +98,10 @@ __global__ void __launch_bounds__(512) scan_fwd_kernel(ScanArgs a, void* out, fl
   float* C_s = B_s + NP * ld;   // [NP][T + 1] varying C
   const mmu::Blk k = mmu::block_of(a);
   const int c = blockIdx.y, t0 = c * T;
-  mmu::stage_rows<TI>(a, k, a.u, t0, u_s);
-  mmu::stage_dt<TI>(a, k, t0, dt_s);
-  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, NP, B_s);
-  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, NP, C_s);
+  mmu::stage_rows<TI>(a, k, a.u, t0, ld, u_s);
+  mmu::stage_dt<TI>(a, k, t0, ld, dt_s);
+  if (a.b_var) mmu::stage_bc<TB>(a, k, a.Bm, a.bs, a.b_gdiv, t0, ld, NP, B_s);
+  if (a.c_var) mmu::stage_bc<TB>(a, k, a.Cm, a.cs, a.c_gdiv, t0, ld, NP, C_s);
   __syncthreads();
 
   // one thread per (channel ci, state n); every lane runs the loop (dead

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_BUDGET = 160 * 1024  # bytes of shared memory a block of any pass may take
+_SMEM_BUDGET = 200 * 1024  # bytes of shared memory a block of any pass may take
 _MAX_T = 128               # longest chunk
 
 
@@ -82,15 +82,16 @@ def _smem_bytes(n: int, NP: int, chans: int, T: int) -> dict:
     """Dynamic shared memory, in bytes, that each chunk pass asks for at one
     block of `chans` channels and chunks of T tokens (as the launches in
     `csrc/selective_scan_{fwd,bwd}.cu` compute it): rows of T + 1 floats per
-    channel and per state; pass C's entry state of each thread's every
-    sub-chunk of 16 tokens, and each warp's dB and dC terms of one
-    sub-chunk in rows of NP + 1 floats."""
-    rows, threads = T + 1, chans * NP
-    return {"fwd_local": (2 * chans + n) * rows * 4,
-            "fwd_final": (2 * chans + 2 * NP) * rows * 4,
-            "bwd_local": (2 * chans + NP) * rows * 4,
-            "bwd_chunk": ((5 * chans + 2 * NP) * rows + T // 16 * threads
-                          + 2 * (threads // 32) * 16 * (NP + 1)) * 4}
+    channel and per state in the forward, T + 4 in the backward (read four
+    tokens at a time); pass C's entry state of each thread's every sub-chunk
+    of 16 tokens, and each warp's dB and dC terms of two sub-chunks in rows
+    of NP + 1 floats."""
+    threads = chans * NP
+    return {"fwd_local": (2 * chans + n) * (T + 1) * 4,
+            "fwd_final": (2 * chans + 2 * NP) * (T + 1) * 4,
+            "bwd_local": (2 * chans + NP) * (T + 4) * 4,
+            "bwd_chunk": ((5 * chans + 2 * NP) * (T + 4) + T // 16 * threads
+                          + 4 * (threads // 32) * 16 * (NP + 1)) * 4}
 
 
 def _plan(u: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> _Plan:
