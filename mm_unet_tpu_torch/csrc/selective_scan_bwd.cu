@@ -73,8 +73,6 @@ using mmu::kAhead;
 using mmu::kS;  // tokens per sub-chunk of pass C, whose states live in registers
 using mmu::ScanArgs;
 
-constexpr int kMaxT = 128;  // longest chunk
-
 struct BwdOut {
   const void* dout;  // (B, Dm, L) stream dtype
   void* du;          // (B, Dm, L) stream dtype
@@ -424,7 +422,7 @@ extern "C" int selective_scan_bwd(const void* u, const void* delta, const void* 
   if (!mmu::fill_scan_args(a, u, delta, z, Bm, Cm, A, bias, Dskip, const_cast<void*>(state),
                            const_cast<void*>(dtsum), bc_strides, b_gdiv, c_gdiv, b_var, c_var,
                            Bsz, Dm, L, N, T, span, chans, softplus) ||
-      T > kMaxT)
+      T % kS != 0)  // pass C walks whole sub-chunks
     return cudaErrorInvalidValue;
   BwdOut o;
   o.dout = dout; o.du = du; o.ddelta = ddelta; o.dz = dz;

@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(128) scan_combine_kernel(ScanArgs a) {
 
 template <typename TI, typename TB, int NP>
 cudaError_t launch_final(const ScanArgs& a, void* out, float* last, dim3 grid, int threads,
-                 cudaStream_t stream) {
+                         cudaStream_t stream) {
   const size_t smem = (size_t)(2 * a.chans + 2 * NP) * (a.T + 1) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(scan_fwd_kernel<TI, TB, NP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,7 +236,8 @@ extern "C" int selective_scan_fwd(const void* u, const void* delta, const void* 
                                   void* stream) {
   mmu::ScanArgs a;
   if (!mmu::fill_scan_args(a, u, delta, z, Bm, Cm, A, bias, Dskip, state, dtsum, bc_strides, b_gdiv,
-                           c_gdiv, b_var, c_var, Bsz, Dm, L, N, T, span, chans, softplus))
+                           c_gdiv, b_var, c_var, Bsz, Dm, L, N, T, span, chans, softplus) ||
+      T % kS != 0)  // the passes walk whole sub-chunks
     return cudaErrorInvalidValue;
   float* lst = static_cast<float*>(last);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+from mm_unet_tpu_torch.ops.chunked_scan import (_SMEM_BUDGET, _plan, _smem_bytes,
+                                                 selective_scan_chunked)
 from mm_unet_tpu_torch.ops.selective_scan import IMPLEMENTATIONS, selective_scan
 from torch_port_harness import assert_close
 
@@ -205,8 +206,6 @@ def test_scan_plan_fits_the_kernels(batch, dim, G, N, R, L):
     sub-chunk and at most 128 tokens, every pass's shared memory within the
     budget (itself within the H100's 227 KB a block), whole warps of at most
     512 threads, blocks inside one B/C group."""
-    from mm_unet_tpu_torch.ops.chunked_scan import _SMEM_BUDGET, _plan, _smem_bytes
-
     meta = dict(device="meta")
     x_dbl = torch.empty(batch, G, R + 2 * N, L, **meta)
     plan = _plan(torch.empty(batch, dim, L, **meta), torch.empty(dim, N, **meta),
