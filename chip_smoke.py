@@ -49,7 +49,12 @@ any failure ends the run non-zero):
    (two batches of 8), images/s for the f32 and bf16 predictor, six
    `train_step`s at 512² batch 8 (finite, falling losses, train images/s,
    peak memory), each with exact launch counts; then three-step blocks on
-   routes a, a and b for the two routes' train rates on one card;
+   routes a, a and b for the two routes' train rates on one card; after
+   phase 7, as part of phase 1, the selective scan's forward and backward
+   alone at every shape one route-b train step gave them (forward hooks on
+   the Mambas), the backward split into its passes A, B, C and the
+   wrapper's partial sums (`phase1 selective_scan_fwd_step` and
+   `phase1 selective_scan_bwd_step` lines);
 7. MM_Net's two Mamba routes on the card, f32, full-width channels at
    depths (1,1,1,1), 2x3x512²: the megakernels (kernels 1/2) against the
    grouped selective scan (kernels 5/6), eval logits and every parameter
