@@ -183,8 +183,8 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
   float* dy_s = dt_s + CH * ld;  // [CH][T + 4] dy = dout * silu(z)
   float* do_s = dy_s + CH * ld;  // [CH][T + 4] dout (with z)
   float* z_s = do_s + CH * ld;   // [CH][T + 4] z, then dz (with z)
-  float* B_s = z_s + CH * ld;    // [NP][T + 4] varying B, rows past N zero
-  float* C_s = B_s + NP * ld;    // [NP][T + 4] varying C
+  float* B_s = z_s + CH * ld;    // [NP][T + 4] B, zero past N (all zero if constant)
+  float* C_s = B_s + NP * ld;    // [NP][T + 4] C, likewise
   float* ck_s = C_s + NP * ld;   // [T / kS][blockDim] each thread's sub-chunk entry states
   // [2 sub-chunks][2][warps][kS][NP + 1]: each warp's terms of dB and dC for
   // a sub-chunk, summed over its channels (odd rows: the block's sum reads
