@@ -18,7 +18,8 @@ any failure ends the run non-zero):
 2. the full-width MM_Net (f32, seeded init) at 1x3x128x128 with the kernels
    on the card against the plain versions on the CPU, same weights; then
    the gradients of every parameter of an MM_Net with full-width channels
-   and depths (1,1,1,1) in train mode, card against CPU;
+   and depths (1,1,1,1) in train mode, card against CPU, in f32 and with
+   the bf16 feature path (the tap-conv's tensor cores);
 3. the serving path: full-width MM_Net in bf16 through `make_predictor`,
    512² sliding windows (overlap 0.5) over a synthetic DRIVE-like batch of 8
    and one 704² image, DiceFocal and the shared metrics through
@@ -58,7 +59,15 @@ any failure ends the run non-zero):
 7. MM_Net's two Mamba routes on the card, f32, full-width channels at
    depths (1,1,1,1), 2x3x512²: the megakernels (kernels 1/2) against the
    grouped selective scan (kernels 5/6), eval logits and every parameter
-   gradient of one train-mode pass, each relative to its own tensor.
+   gradient of one train-mode pass, each relative to its own tensor;
+8. UM_Net (f32, seeded init, full width): (a) eval logits at 1x3x128² on
+   the card against the plain model on the CPU, per element; (b) its two
+   Mamba routes against each other at 2x3x512² as phase 7 holds MM_Net's;
+   (c) `val_one_epoch` over 512² sliding windows (two batches of 8, f32
+   predictor) with exact launch counts, then images/s; (d) six
+   `train_step`s at 512² batch 8 (finite, falling losses, exact launch
+   counts per step, train images/s, peak memory); (e) kernels 1-4 alone at
+   every shape one of those steps gave them (`phase8 ..._step` lines).
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
@@ -121,6 +130,26 @@ DK_CPU_TOL = 3e-4
 # up to 8.5e-3 on such tensors)
 MM_ROUTE_LOGITS_TOL = 2e-4
 MM_ROUTE_TOL = 5e-2
+# every parameter gradient of MM_Net at depth 1 in train mode with the bf16
+# feature path, card vs CPU (both bf16, the card sampling at the CPU's rows),
+# relative to the largest |want| of its own tensor or to BF16_GRAD_FLOOR of
+# the model's largest gradient where that is larger: bf16 rounds every
+# layer's output and gradient to 2^-8 of its size, at other points on the
+# two devices, and train-mode BatchNorm's backward cancels most of it, so a
+# small gradient carries the rounding of the large ones it is summed from
+# (the line's `unfloored` entry). Largest sound reading 2.3 (on
+# `encoder4.0.block1.3.gn_offset.weight`); a planted fault
+# that skips a tensor-core k-slice of the tap-conv fails it (PERF.md §6)
+BF16_GRAD_TOL = 4.0
+BF16_GRAD_FLOOR = 1e-2
+# UM_Net, f32: the full-width model's eval logits, kernels on the card vs
+# plain versions on the CPU, per element as `rel_err` (largest sound
+# reading 5.5e-6); route a vs route b on the card, logits per element and
+# every parameter gradient relative to its own tensor, the forms and limits
+# of phase 7 (largest sound readings 2.1e-6 and 3.6e-4)
+UM_MODEL_TOL = 5e-5
+UM_ROUTE_LOGITS_TOL = MM_ROUTE_LOGITS_TOL
+UM_ROUTE_TOL = MM_ROUTE_TOL
 TRAIN_STEPS = 6
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s, f32 operations/s outside the tensor cores, and the dense
@@ -340,7 +369,9 @@ def bn_fed_biases(model: torch.nn.Module) -> set:
     mean, which removes a per-channel shift exactly, and divides by the batch
     deviation, which removes a per-channel scale but for the norm's eps: their
     gradient is zero in exact arithmetic (the scale's, to ~eps / variance)
-    and rounding noise in f32."""
+    and rounding noise in f32. A DSConv ends in a GroupNorm as an MMConv
+    does."""
+    from mm_unet_tpu_torch.models.dsconv import DSConv
     from mm_unet_tpu_torch.models.mm_unet import MMConv
 
     names = set()
@@ -352,17 +383,19 @@ def bn_fed_biases(model: torch.nn.Module) -> set:
                 name = f"{prefix}.{i}" if prefix else f"{i}"
                 if isinstance(conv, torch.nn.Conv2d) and conv.bias is not None:
                     names.add(f"{name}.bias")
-                elif isinstance(conv, MMConv):
+                elif isinstance(conv, (MMConv, DSConv)):
                     names.update((f"{name}.gn.weight", f"{name}.gn.bias"))
     return names
 
 
-def tensor_grad_errs(got: dict, want: dict, tol: float, exact_zero: set) -> tuple[int, list]:
+def tensor_grad_errs(got: dict, want: dict, tol: float, exact_zero: set,
+                     floor: float = 0.0) -> tuple[int, list]:
     """(parameters out of `tol` or not finite, the four worst) for two
     {name: gradient} maps, each error relative to the largest |want| of its
-    own tensor. A gradient that is zero in exact arithmetic (`exact_zero`)
-    is held to zero instead: its largest |got| and |want| relative to the
-    largest gradient of the model."""
+    own tensor, or to `floor` times the largest gradient of the model where
+    that is larger. A gradient that is zero in exact arithmetic
+    (`exact_zero`) is held to zero instead: its largest |got| and |want|
+    relative to the largest gradient of the model."""
     top = max(w.float().abs().max().item() for w in want.values())
     worst, bad = [], 0
     for name, w in want.items():
@@ -370,12 +403,54 @@ def tensor_grad_errs(got: dict, want: dict, tol: float, exact_zero: set) -> tupl
         if name in exact_zero:
             err, size = max(g.abs().max().item(), w.abs().max().item()), top
         else:
-            err, size = (g - w).abs().max().item(), w.abs().max().item()
+            err, size = (g - w).abs().max().item(), max(w.abs().max().item(), floor * top)
         rel = err / size if size else (math.inf if err else 0.0)
         worst.append((rel, name, err, size))
         bad += not rel <= tol or not bool(torch.isfinite(g).all())
     worst.sort(reverse=True)
     return bad, [dict(name=n, max_abs_err=e, relative=r, scale=m) for r, n, e, m in worst[:4]]
+
+
+class RowPins:
+    """Sample rows of a model's morph-0 deformable convs (MMConv, DSConv),
+    by module name: `record()` keeps each module's row coordinates on the
+    next pass; `pin(rows)` makes each module sample at the given rows while
+    its gradient still flows through its own (`y + (y_pinned - y).detach()`)
+    and keeps the rows' largest difference in `.err`; `release()` restores
+    the modules. The gradient of a row sample w.r.t. its row jumps where
+    floor() of the row crosses an integer, so two computations whose rows
+    differ by rounding are compared at one set of rows."""
+
+    def __init__(self, model):
+        from mm_unet_tpu_torch.models.dsconv import DSConv
+        from mm_unet_tpu_torch.models.mm_unet import MMConv
+
+        self.modules = {n: m for n, m in model.named_modules()
+                        if isinstance(m, (MMConv, DSConv)) and m.morph == 0}
+        self.rows, self.err = {}, 0.0
+
+    def _wrap(self, name, m, rows):
+        def sample_conv(feat, y):
+            if rows is None:
+                self.rows[name] = y.detach()
+            else:
+                want = rows[name].to(y.device)
+                self.err = max(self.err, (y - want).abs().max().item())
+                y = y + (want - y).detach()
+            return type(m)._sample_conv(m, feat, y)
+        return sample_conv
+
+    def record(self):
+        for name, m in self.modules.items():
+            m._sample_conv = self._wrap(name, m, None)
+
+    def pin(self, rows):
+        for name, m in self.modules.items():
+            m._sample_conv = self._wrap(name, m, rows)
+
+    def release(self):
+        for m in self.modules.values():
+            m.__dict__.pop("_sample_conv", None)
 
 
 SERVING_REPS = 10
@@ -547,10 +622,11 @@ def call_device_ops(fn, reps: int = 3) -> dict:
 
 def tap_step_shapes(model) -> tuple[dict, list]:
     """({shape: tap-conv calls}, hooks): forward hooks on the model's
-    MMConvs that count, per forward, the one tap-conv each makes at (batch,
-    H, W, C, F, K, stream dtype), read from the module's input (B, C, H, W)
-    and its weights; a train step's backward launches kernel 4 once per
-    call."""
+    morph-0 MMConvs and DSConvs that count, per forward, the one tap-conv
+    each makes at (batch, H, W, C, F, K, stream dtype), read from the
+    module's input (B, C, H, W) and its weights; a train step's backward
+    launches kernel 4 once per call."""
+    from mm_unet_tpu_torch.models.dsconv import DSConv
     from mm_unet_tpu_torch.models.mm_unet import MMConv
 
     shapes: dict = {}
@@ -561,7 +637,8 @@ def tap_step_shapes(model) -> tuple[dict, list]:
                str(inputs[0].dtype)[6:])
         shapes[key] = shapes.get(key, 0) + 1
 
-    hooks = [m.register_forward_hook(record) for m in model.modules() if isinstance(m, MMConv)]
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, (MMConv, DSConv)) and m.morph == 0]
     return shapes, hooks
 
 
@@ -610,7 +687,7 @@ def fwd_blocks_per_sm(D: int, R: int, N: int, dtype) -> list:
     return list(out)
 
 
-def phase1_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
+def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[list, list]:
     """Kernels 1 and 2 alone at every shape that a train step gives them
     (from `mamba_step_shapes`): kernel 1 as a forward-only call of
     `mamba_fused_scan` under `torch.no_grad()`, kernel 2 as
@@ -640,7 +717,7 @@ def phase1_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
         bms, by = bound(*mamba_work(B, D, L, N, R, W, x.element_size(), False))
         rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
                    blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype))
-        print(f"phase1 mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
+        print(f"{tag} mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
 
         dout = rn(B, 1, D, L).to(dtype)
@@ -650,7 +727,7 @@ def phase1_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
         bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
         rec = dict(shape, ms=ms, kernel_ms=kernel_device_ms(call, BWD_KERNELS), bound_ms=bms,
                    bound_by=by, launches_per_step=calls)
-        print(f"phase1 mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
+        print(f"{tag} mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         del xz, x, w, dout, out, live
     return fwd, bwd
@@ -662,7 +739,7 @@ TAP_FWD_KERNELS = ("tap_conv_kernel",)
 TAP_BWD_GROUPS = {"dfeat": ("tap_dfeat",), "dkernel": ("tap_dkernel",)}
 
 
-def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
+def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[list, list]:
     """Kernels 3 and 4 alone at every shape that a train step gives them
     (from `tap_step_shapes`): kernel 3 as a forward-only call of `tap_conv`
     under `torch.no_grad()`, kernel 4 as `torch.autograd.grad` through it,
@@ -697,7 +774,7 @@ def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
         bms, by = bound(*tap_work(B, H, W, C, F, K, inputs[0].element_size(), False))
         rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
                    **({"call_ops": ops} if ops else {}))
-        print(f"phase1 tap_conv_fwd_step {json.dumps(rec)}", flush=True)
+        print(f"{tag} tap_conv_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
 
         dout = rn(B, H, W, F).to(dtype)
@@ -711,7 +788,7 @@ def phase1_tap_step_shapes(shapes: dict, seed: int) -> tuple[list, list]:
                    dkernel_kernel_ms=parts["dkernel"], bound_ms=bms, bound_by=by,
                    launches_per_step=calls,
                    **({"call_ops": ops} if ops else {}))
-        print(f"phase1 tap_conv_bwd_step {json.dumps(rec)}", flush=True)
+        print(f"{tag} tap_conv_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         del inputs, dout, out, live
     return fwd, bwd
@@ -941,6 +1018,62 @@ def phase2_gradients(seed: int) -> None:
         gpu_s=t_gpu, cpu_s=t_cpu, ok=ok)), flush=True)
     if not ok:
         raise SystemExit("phase2 FAILED: card gradients disagree with the plain model's")
+
+
+def phase2_bf16_gradients(seed: int) -> None:
+    """Every parameter gradient of MM_Net with full-width channels, depths
+    (1,1,1,1) and the bf16 feature path (the tap-conv's tensor-core path) in
+    train mode, the kernels on the card against the plain versions on the
+    CPU, both bf16, each relative to its own tensor (floored at
+    BF16_GRAD_FLOOR of the model's largest gradient); the biases and norms
+    that feed a train-mode BatchNorm are held to zero. The card samples at
+    the CPU's rows (`RowPins`: the two devices' bf16 offsets differ by
+    rounding, and a row that crosses an integer moves its offset path's
+    gradients by far more). An unpinned card pass, and the pinned one
+    without the floor, are reported beside the check and gate nothing. The
+    line is printed before a failure ends the run."""
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+
+    cpu_model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(seed),
+                           mamba_dtype="bfloat16", depths=(1, 1, 1, 1),
+                           num_slices_list=(4, 4, 4, 4), remat=False, sideout_drop=0.0).train()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(np.float32))
+    y = torch.from_numpy((rng.random((2, 1, 64, 64)) < 0.2).astype(np.float32))
+    cpu_pins, gpu_pins = RowPins(cpu_model), RowPins(gpu_model)
+    cpu_pins.record()
+    t0 = time.perf_counter()
+    dice_focal_loss(cpu_model(x), y).backward()
+    t_cpu = time.perf_counter() - t0
+    cpu_pins.release()
+    want = {k: p.grad for k, p in cpu_model.named_parameters()}
+    zero = bn_fed_biases(cpu_model)
+    grads = {}
+    for pinned in (True, False):
+        gpu_model.zero_grad(set_to_none=True)
+        if pinned:
+            gpu_pins.pin(cpu_pins.rows)
+        t0 = time.perf_counter()
+        dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        gpu_pins.release()
+        grads[pinned] = {k: p.grad.detach().clone() for k, p in gpu_model.named_parameters()}
+    bad, worst = tensor_grad_errs(grads[True], want, BF16_GRAD_TOL, zero, BF16_GRAD_FLOOR)
+    n_free, worst_free = tensor_grad_errs(grads[False], want, BF16_GRAD_TOL, zero,
+                                          BF16_GRAD_FLOOR)
+    n_bare, worst_bare = tensor_grad_errs(grads[True], want, BF16_GRAD_TOL, zero)
+    print("phase2 bf16 gradients " + json.dumps(dict(
+        params=len(want), out_of_tol=bad, tol_relative=BF16_GRAD_TOL,
+        floor_of_largest=BF16_GRAD_FLOOR, worst=worst,
+        sample_rows_max_abs_err=gpu_pins.err,
+        unpinned=dict(grads_out_of_tol=n_free, worst=worst_free[:2]),
+        unfloored=dict(grads_out_of_tol=n_bare, worst=worst_bare[:2]),
+        gpu_s=t_gpu, cpu_s=t_cpu, ok=bad == 0)), flush=True)
+    if bad:
+        raise SystemExit("phase2 FAILED: bf16 card gradients disagree with the plain model's")
 
 
 def phase3_serving(seed: int, profile: bool = False) -> dict:
@@ -1273,52 +1406,33 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     return {"serve": serve, "train": train_counts}, scan_shapes
 
 
-def phase7_mm_routes(seed: int) -> None:
-    """MM_Net with full-width channels and depths (1,1,1,1), f32
-    (`mamba_dtype=None`), remat and side-output dropout off, the same
-    weights on both routes of its Mambas (all of d_state 16): route a, the
-    megakernels (kernels 1/2), against route b, the grouped selective scan
-    (kernels 5/6, `scan_impl="pallas"` on every Mamba), at MM_Net's own
-    shapes (D = 128, 6 and 2). Eval logits at 2x3x512², then every parameter
-    gradient of one train-mode forward and backward (DiceFocal), each
-    relative to its own tensor, with each route's kernel launches.
+def mamba_routes_check(tag: str, model, x, y, logits_tol: float, tol: float,
+                       extra: dict) -> bool:
+    """`model` (on the card, f32, dropout off) on both routes of its Mambas,
+    the same weights: route a, the megakernels (kernels 1/2), against route
+    b, the grouped selective scan (kernels 5/6, `scan_impl="pallas"` on every
+    Mamba). Eval logits, per element as `rel_err` within `logits_tol`, then
+    every parameter gradient of one train-mode forward and backward
+    (DiceFocal), each relative to its own tensor within `tol`, with each
+    route's kernel launches (one forward and one backward per call).
 
-    The gradient of an MMConv's row sampling w.r.t. its rows jumps where
-    floor() of a row crosses an integer, so a row within rounding of one
-    (which the two routes' Mamba outputs, equal to ~1e-7, can put on either
-    side) moves its offset path's gradients by far more than the routes
-    differ. So the train passes after route a's first sample at its rows,
-    with the gradient still through their own Mambas (`y + (y_a -
-    y).detach()`), and the line reports the rows' largest difference. Two
-    more passes are reported beside the check and gate nothing: route a
+    The gradient of a deformable conv's row sampling w.r.t. its rows jumps
+    where floor() of a row crosses an integer, so a row within rounding of
+    one (which the two routes' Mamba outputs, equal to ~1e-7, can put on
+    either side) moves its offset path's gradients by far more than the
+    routes differ. So the train passes after route a's first sample at its
+    rows (`RowPins`), and the line reports the rows' largest difference.
+    Two more passes are reported beside the check and gate nothing: route a
     again (the run-to-run spread of the card's sums) and route b unpinned.
-    The line is printed before a failure ends the run."""
-    from mm_unet_tpu_torch.data import synthetic_batch
-    from mm_unet_tpu_torch.models import give_model
+    Prints the line; returns whether the check passed."""
     from mm_unet_tpu_torch.models.mamba import Mamba
-    from mm_unet_tpu_torch.models.mm_unet import MMConv
     from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.train.losses import dice_focal_loss
 
-    model = give_model("MM_Net", device="cuda", generator=torch.Generator().manual_seed(seed),
-                       mamba_dtype=None, depths=(1, 1, 1, 1), remat=False, sideout_drop=0.0)
     mambas = [m for m in model.modules() if isinstance(m, Mamba)]
-    mmconvs = [m for m in model.modules() if isinstance(m, MMConv)]
-    batch = synthetic_batch(2, 512, seed + 6)
-    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
     counters = {"mamba_fused_scan": mamba_fused_scan, "selective_scan": selective_scan_chunked}
-    rows, row_err = {}, [0.0]
-
-    def sampler(m, pin):
-        def sample_conv(feat, y_rows):
-            if pin == "record":
-                rows[m] = y_rows.detach()
-            elif pin == "pin":
-                row_err[0] = max(row_err[0], (y_rows - rows[m]).abs().max().item())
-                y_rows = y_rows + (rows[m] - y_rows).detach()
-            return MMConv._sample_conv(m, feat, y_rows)
-        return sample_conv
+    pins = RowPins(model)
 
     def set_route(impl):
         for m in mambas:
@@ -1339,34 +1453,222 @@ def phase7_mm_routes(seed: int) -> None:
                 want[name] += n
         for fn in counters.values():
             fn.launches = fn.bwd_launches = 0
-        for m in mmconvs:
-            m._sample_conv = sampler(m, pin)
+        if pin == "record":
+            pins.record()
+        elif pin == "pin":
+            pins.pin(pins.rows)
         model.train().zero_grad(set_to_none=True)
         dice_focal_loss(model(x), y).backward()
         torch.cuda.synchronize()
-        for m in mmconvs:
-            del m._sample_conv
+        pins.release()
         grads[route] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
         # the route's own kernels, one forward and one backward launch per call
         launches[route] = {name: [fn.launches, fn.bwd_launches] for name, fn in counters.items()}
         launches_ok = launches_ok and all(launches[route][name] == [n, n]
                                           for name, n in want.items())
+    set_route(None)
     err, rel = rel_err(logits["b"], logits["a"])
     zero = bn_fed_biases(model)
-    bad, worst = tensor_grad_errs(grads["b"], grads["a"], MM_ROUTE_TOL, zero)
+    bad, worst = tensor_grad_errs(grads["b"], grads["a"], tol, zero)
     beside = {}
     for route in ("a again", "b unpinned"):
-        n_out, w = tensor_grad_errs(grads[route], grads["a"], MM_ROUTE_TOL, zero)
+        n_out, w = tensor_grad_errs(grads[route], grads["a"], tol, zero)
         beside[route] = dict(grads_out_of_tol=n_out, worst=w[:2])
     ok = (bool(torch.isfinite(logits["a"]).all()) and bool(torch.isfinite(logits["b"]).all())
-          and rel <= MM_ROUTE_LOGITS_TOL and bad == 0 and launches_ok)
-    print("phase7 mm_net routes " + json.dumps(dict(
-        shape=list(logits["a"].shape), depths=[1, 1, 1, 1], logits_max_abs_err=err,
-        logits_rel_err=rel, logits_tol=MM_ROUTE_LOGITS_TOL, sample_rows_max_abs_err=row_err[0],
-        params=len(grads["a"]), grads_out_of_tol=bad, tol_relative=MM_ROUTE_TOL, worst=worst,
+          and rel <= logits_tol and bad == 0 and launches_ok)
+    print(f"{tag} " + json.dumps(dict(
+        shape=list(logits["a"].shape), **extra, logits_max_abs_err=err,
+        logits_rel_err=rel, logits_tol=logits_tol, sample_rows_max_abs_err=pins.err,
+        params=len(grads["a"]), grads_out_of_tol=bad, tol_relative=tol, worst=worst,
         beside=beside, launches=launches, launches_ok=launches_ok, ok=ok)), flush=True)
-    if not ok:
+    return ok
+
+
+def phase7_mm_routes(seed: int) -> None:
+    """MM_Net with full-width channels and depths (1,1,1,1), f32
+    (`mamba_dtype=None`), remat and side-output dropout off, at 2x3x512²,
+    through `mamba_routes_check`: its Mambas (all of d_state 16) at
+    MM_Net's own shapes (D = 128, 6 and 2)."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.models import give_model
+
+    model = give_model("MM_Net", device="cuda", generator=torch.Generator().manual_seed(seed),
+                       mamba_dtype=None, depths=(1, 1, 1, 1), remat=False, sideout_drop=0.0)
+    batch = synthetic_batch(2, 512, seed + 6)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    if not mamba_routes_check("phase7 mm_net routes", model, x, y, MM_ROUTE_LOGITS_TOL,
+                              MM_ROUTE_TOL, dict(depths=[1, 1, 1, 1])):
         raise SystemExit("phase7 FAILED: MM_Net's two Mamba routes disagree")
+
+
+def make_um_net(seed: int, device: str = "cuda"):
+    from mm_unet_tpu_torch.models import give_model
+
+    return give_model("UM_Net", device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def phase8_um_card_vs_cpu(seed: int) -> None:
+    """The full-width UM_Net (f32, seeded init) at 1x3x128² in eval mode,
+    kernels on the card against the plain versions on the CPU, the same
+    weights; the logits per element as `rel_err`."""
+    cpu_model = make_um_net(seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    x = torch.from_numpy(np.random.default_rng(seed + 7).standard_normal((1, 3, 128, 128),
+                                                                         np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = gpu_model(x.cuda()).cpu()
+        t_gpu = time.perf_counter() - t0
+        want = cpu_model(x)
+    t_cpu = time.perf_counter() - t0 - t_gpu
+    err, rel = rel_err(got, want)
+    ok = bool(torch.isfinite(got).all()) and rel <= UM_MODEL_TOL
+    print("phase8 um_net card vs cpu " + json.dumps(dict(
+        shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=UM_MODEL_TOL, gpu_s=t_gpu,
+        cpu_s=t_cpu, ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase8 FAILED: UM_Net on the card disagrees with the plain model")
+
+
+def phase8_um_routes(seed: int) -> None:
+    """The full-width UM_Net, f32, dropout off (p = 0 at its two sites, so
+    that both routes' train passes draw nothing), at 2x3x512², through
+    `mamba_routes_check`: its three RCG Mambas (d_model 64, one direction)
+    at D = 128, L = 4,096, 16,384 and 65,536."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.models.layers import Dropout2d
+
+    model = make_um_net(seed)
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.p = 0.0
+    batch = synthetic_batch(2, 512, seed + 8)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    if not mamba_routes_check("phase8 um_net routes", model, x, y, UM_ROUTE_LOGITS_TOL,
+                              UM_ROUTE_TOL, {}):
+        raise SystemExit("phase8 FAILED: UM_Net's two Mamba routes disagree")
+
+
+def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, dict]:
+    """UM_Net's serving and training paths on the card (route a), each with
+    exact launch counts: `val_one_epoch` over 512² sliding windows (overlap
+    0.5, two synthetic batches of 8, f32 predictor: one forward per batch),
+    then the f32 predictor's images/s; six `train_step`s at 512² batch 8,
+    f32, DiceFocal, AdamW lr 1e-3 (finite losses, the last below the first,
+    train images/s, peak memory), with forward hooks during the first step
+    that read the shapes kernels 1-4 are given and must cover the step's
+    launches. Returns (launches per forward and per train step, the
+    launches of each kernel on each path, the fused scans' step shapes, the
+    tap-conv's step shapes)."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.evaluate import val_one_epoch
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+    from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+    from mm_unet_tpu_torch.train.metrics import build_metrics
+    from mm_unet_tpu_torch.train.predictor import make_predictor
+    from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
+
+    counters = ((mamba_fused_scan, "mamba_fused_scan"), (tap_conv, "tap_conv"))
+
+    def reset():
+        for fn, _ in counters:
+            fn.launches = fn.bwd_launches = 0
+
+    def read():
+        return {name: {"fwd": fn.launches, "bwd": fn.bwd_launches} for fn, name in counters}
+
+    model = make_um_net(seed)
+    per_forward = model.kernel_launches_per_forward()
+    per_step = model.kernel_launches_per_train_step()
+    batches = [synthetic_batch(8, 512, seed + 9), synthetic_batch(8, 512, seed + 10)]
+    inferer = SlidingWindowInferer(roi_size=(512, 512), overlap=0.5)
+    logits = []
+
+    def infer(images, predictor):
+        out = inferer(images, predictor)
+        logits.append(out)
+        return out
+
+    reset()
+    t0 = time.perf_counter()
+    f1, metric, losses = val_one_epoch(model, dice_focal_loss, infer, batches, build_metrics())
+    torch.cuda.synchronize()
+    t_val = time.perf_counter() - t0
+    got = read()
+    want = {k: {"fwd": v * len(batches), "bwd": 0} for k, v in per_forward.items()}
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    shapes = [list(x.shape) for x in logits]
+    x = torch.from_numpy(batches[0]["image"]).cuda()
+    predictor = make_predictor(model)
+    inferer(x, predictor)  # warm-up
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVING_REPS):
+        out = inferer(x, predictor)
+    torch.cuda.synchronize()
+    rate = x.shape[0] * SERVING_REPS / (time.perf_counter() - t0)
+    rate_launches = read()
+    rate_want = {k: {"fwd": v * SERVING_REPS, "bwd": 0} for k, v in per_forward.items()}
+    ok = (finite and got == want and shapes == [list(b["label"].shape) for b in batches]
+          and all(np.isfinite(losses)) and rate_launches == rate_want
+          and bool(torch.isfinite(out).all()))
+    print("phase8 um_net val " + json.dumps(dict(
+        logits=shapes, finite=finite, losses=losses, launches=got, expected=want,
+        metrics={k: (v if v == v else None) for k, v in metric.items()}, seconds=t_val,
+        roi=list(inferer.roi_size), batch=x.shape[0], overlap=inferer.overlap,
+        images_per_sec_f32_predictor=rate,
+        rate_launches_ok=rate_launches == rate_want, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase8 FAILED: UM_Net serving path")
+    serve = {name: c["fwd"] for name, c in got.items()}
+
+    batch = synthetic_batch(8, 512, seed + 2)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    # lr 1e-3 held constant: warmup 1 epoch of a million steps
+    config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, steps_per_epoch=10**6,
+                              weight_decay=0.05, optimizer="adamw")}
+    state = create_train_state(model, config, seed=seed)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    train = {name: 0 for _, name in counters} | {f"{name}_bwd": 0 for _, name in counters}
+    mamba_shapes, hooks = mamba_step_shapes(model)
+    tap_shapes, tap_hooks = tap_step_shapes(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts_ok = [], [], True
+    for i in range(TRAIN_STEPS):
+        reset()
+        t0 = time.perf_counter()
+        scalars, _ = train_step(state, x, y, loss_fn)
+        losses.append(float(scalars["total_loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+        if i == 0:  # the shapes of one step
+            for h in hooks + tap_hooks:
+                h.remove()
+        got = read()
+        counts_ok = counts_ok and got == per_step
+        for name, c in got.items():
+            train[name] += c["fwd"]
+            train[f"{name}_bwd"] += c["bwd"]
+    peak = torch.cuda.max_memory_allocated()
+    rate = x.shape[0] * (TRAIN_STEPS - 1) / sum(times[1:])  # the first step warms up
+    shapes_ok = (sum(mamba_shapes.values()) == per_step["mamba_fused_scan"]["bwd"]
+                 and sum(tap_shapes.values()) == per_step["tap_conv"]["bwd"])
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and counts_ok and shapes_ok
+          and state.step == TRAIN_STEPS)
+    print("phase8 um_net train " + json.dumps(dict(
+        batch=x.shape[0], size=x.shape[-1], dtype="float32", losses=losses,
+        launches_per_step=per_step,
+        counts_ok=counts_ok, mamba_shapes=len(mamba_shapes), tap_conv_shapes=len(tap_shapes),
+        shapes_cover_launches=shapes_ok, step_seconds=times, train_images_per_sec=rate,
+        max_memory_allocated_bytes=peak, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase8 FAILED: UM_Net training path")
+    if profile:
+        profile_step("um_net train", lambda: train_step(state, x, y, loss_fn))
+    counts = {"per_forward": per_forward, "per_train_step": per_step}
+    return counts, {"serve": serve, "train": train}, mamba_shapes, tap_shapes
 
 
 # kernel-name fragments -> the layer that launched the kernel
@@ -1421,7 +1723,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one bf16 sliding-window pass and one train step of "
-                         "MM_Net and one route-b train step of dkDualNet (device time by layer)")
+                         "MM_Net, one route-b train step of dkDualNet and one train step of "
+                         "UM_Net (device time by layer)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs the GPU")
@@ -1444,6 +1747,7 @@ def main() -> None:
     print(f"phase1 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase2_model(args.seed)
     phase2_gradients(args.seed)
+    phase2_bf16_gradients(args.seed)
     serve = phase3_serving(args.seed, args.profile)
     train, shapes, tap_shapes = phase4_training(args.seed, args.profile)
     print(f"phases 2-4 done at {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -1456,12 +1760,22 @@ def main() -> None:
     print(f"phases 5-7 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     scan_fwd_steps, scan_bwd_steps = phase1_scan_step_shapes(scan_shapes, args.seed)
     print(f"phase1 scan step shapes done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    phase8_um_card_vs_cpu(args.seed)
+    phase8_um_routes(args.seed)
+    um_counts, um, um_shapes, um_tap_shapes = phase8_um_path(args.seed, args.profile)
+    um_fwd, um_bwd = phase1_step_shapes(um_shapes, args.seed, "phase8")
+    um_tap_fwd, um_tap_bwd = phase1_tap_step_shapes(um_tap_shapes, args.seed, "phase8")
+    print(f"phase8 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
     unlaunched += [f"{name} (dkDualNet {path})" for path, name in (
         ("serve", "selective_scan"), ("train", "selective_scan"), ("train", "selective_scan_bwd"))
         if dk[path][name] == 0]
+    unlaunched += [f"{name} (UM_Net {path})" for path, names in (
+        ("serve", ("mamba_fused_scan", "tap_conv")),
+        ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd", "tap_conv", "tap_conv_bwd")))
+        for name in names if um[path][name] == 0]
     if unlaunched:
         raise SystemExit(f"chip_smoke: the main paths launched no {unlaunched}")
 
@@ -1486,6 +1800,16 @@ def main() -> None:
                 "step_shapes": [{k: r[k] for k in (*keys, *sums, "launches_per_step")}
                                 for r in steps]}
 
+    def um_entry(name, steps, keys=("D", "L", "reverse"), extra=()):
+        # UM_Net's launches of this kernel, and its times and bounds at the
+        # shapes one UM_Net train step gives it
+        kernel, part = (name[:-4], "bwd") if name.endswith("_bwd") else (name, "fwd")
+        return {"um_net": {
+            "launches_per_forward": um_counts["per_forward"][kernel] if part == "fwd" else 0,
+            "launches_per_train_step": um_counts["per_train_step"][kernel][part],
+            "launches_by_path": {"serve": um["serve"].get(name, 0), "train": um["train"][name]},
+            **step_sums(steps, keys, extra)}}
+
     tap_keys = ("H", "W", "C", "F", "K")
     scan_keys = ("Dm", "G", "L")
     scan_parts = tuple(f"{k}_kernel_ms" for k in SCAN_BWD_GROUPS)
@@ -1494,15 +1818,19 @@ def main() -> None:
     print(smi(), flush=True)
     print(json.dumps({"kernels": [
         summary("mamba_fused_scan", "mm_unet_tpu_torch/csrc/mamba_fused_fwd.cu",
-                "mm_unet_tpu/ops/mamba_fused.py:240", mm, **step_sums(fwd_steps)),
+                "mm_unet_tpu/ops/mamba_fused.py:240", mm, **step_sums(fwd_steps),
+                **um_entry("mamba_fused_scan", um_fwd)),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
-                "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps)),
+                "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps),
+                **um_entry("mamba_fused_scan_bwd", um_bwd)),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm,
-                **step_sums(tap_fwd_steps, tap_keys)),
+                **step_sums(tap_fwd_steps, tap_keys), **um_entry("tap_conv", um_tap_fwd, tap_keys)),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:133", mm,
-                **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms"))),
+                **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms")),
+                **um_entry("tap_conv_bwd", um_tap_bwd, tap_keys,
+                         ("dfeat_kernel_ms", "dkernel_kernel_ms"))),
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128",

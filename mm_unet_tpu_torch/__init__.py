@@ -7,9 +7,10 @@ reference. The package mirrors the reference's module paths:
   CUDA kernels, forward and backward, of the fused Mamba scan
   (`mamba_fused`) and the morph-0 tap-conv (`tap_conv`), whose sources live
   in ``csrc/`` and are built by ``_build`` at first use.
-- ``mm_unet_tpu_torch.models`` — `MM_Net` (eval and train mode) and its
-  blocks, with the reference's torch module and parameter names.
-- ``mm_unet_tpu_torch.train``  — DiceFocal loss, AdamW and its schedule,
+- ``mm_unet_tpu_torch.models`` — `MM_Net`, `dkDualNet` and `UM_Net` (eval
+  and train mode) and their blocks, with the reference's torch module and
+  parameter names.
+- ``mm_unet_tpu_torch.train``  — the loss registry, AdamW and its schedule,
   the train step and epoch, sliding-window inference and the predictor.
 - ``mm_unet_tpu_torch.evaluate`` — the validation loop.
 - ``mm_unet_tpu_torch.utils.convert`` — JAX variables (and gradients) ->

@@ -1,4 +1,4 @@
-"""Models: MM_Net, dkDualNet and their blocks."""
+"""Models: MM_Net, dkDualNet, UM_Net and their blocks."""
 
 from mm_unet_tpu_torch.models.registry import give_model
 

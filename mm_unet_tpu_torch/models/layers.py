@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mm_unet_tpu_torch.ops.grid_sample import grid_sample_bilinear
+
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
@@ -33,6 +35,23 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+
+
+def grid_sample_bilinear_nhwc(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """NHWC form of `ops.grid_sample.grid_sample_bilinear` (bilinear, zeros
+    padding, align_corners=True): feat (B, H, W, C), grid (B, Hg, Wg, 2) xy
+    in [-1, 1]; returns (B, Hg, Wg, C)."""
+    return nchw_to_nhwc(grid_sample_bilinear(nhwc_to_nchw(feat), grid))
+
+
+def sample_at(feat: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of NHWC `feat` (B, H, W, C) at row and column
+    coordinates y, x (B, Hg, Wg), each clamped to the map, as the
+    reference's deformable convs take them: (B, Hg, Wg, C)."""
+    h, w = feat.shape[1:3]
+    y_s = y.clamp(0, h - 1) * (2.0 / max(h - 1, 1)) - 1.0
+    x_s = x.clamp(0, w - 1) * (2.0 / max(w - 1, 1)) - 1.0
+    return grid_sample_bilinear_nhwc(feat, torch.stack([x_s, y_s], dim=-1))
 
 
 def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -178,8 +197,10 @@ class GroupNorm(nn.GroupNorm):
         return y.to(cd)
 
 
-def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
-    """flax `lecun_normal`: truncated normal (+-2 sd) with variance 1/fan_in."""
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `lecun_normal`: truncated normal (+-2 sd) with variance 1/fan_in,
+    drawn from `generator` (PyTorch's default generator when None)."""
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)

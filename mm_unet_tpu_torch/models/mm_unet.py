@@ -37,6 +37,7 @@ from mm_unet_tpu_torch.models.layers import (
     nchw_to_nhwc,
     nhwc_to_nchw,
     resize_bilinear_align_corners,
+    sample_at,
 )
 from mm_unet_tpu_torch.models.mamba import Mamba, kernel_launches
 from mm_unet_tpu_torch.ops.geometry import (
@@ -48,10 +49,14 @@ from mm_unet_tpu_torch.ops.tap_conv import tap_conv
 
 
 class MMConv(nn.Module):
-    """Morph-0 Morph-Mamba deformable conv: offset conv 3x3 -> GroupNorm(k)
-    -> tanh -> row coordinates (cumulative offsets from the kernel centre,
-    refined by a TFM Mamba over the serpentine-flattened offset field) ->
-    fused row sample + (k,1) stride-k conv (`tap_conv`) -> GroupNorm(out/4).
+    """Morph-Mamba deformable conv: offset conv 3x3 -> GroupNorm(k) -> tanh
+    -> row coordinates (cumulative offsets from the kernel centre, refined
+    by a TFM Mamba over the serpentine-flattened offset field) -> sample and
+    conv -> GroupNorm(out/4). Morph 0 (every MMConv of MM_Net) fuses the row
+    sample and the (k,1) stride-k conv in `tap_conv`. Morph 1 grid-samples
+    a (B, H*K, W) map, tap j of row h at row y and column clamp(w + j -
+    k//2), and applies the (1,k) stride-(1,k) conv `dsc_conv_y`: its output
+    is (B, F, H*K, W//k), the JAX module's shape (`mm_unet.py:128-140`).
 
     `remat` (set through MM_Net.remat) wraps the sample-and-conv part, tap-conv plus
     GroupNorm, in `torch.utils.checkpoint` while training with grad enabled:
@@ -63,17 +68,23 @@ class MMConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
                  extend_scope: float = 1.0, num_slices: int = 4,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, morph: int = 0):
         super().__init__()
+        if morph not in (0, 1):
+            raise ValueError("morph should be 0 or 1.")
         k = self.kernel_size = kernel_size
-        self.extend_scope = extend_scope
+        self.extend_scope, self.morph = extend_scope, morph
         self.offset_conv = Conv2d(in_channels, 2 * k, 3, padding=1, compute_dtype=dtype)
         self.gn_offset = GroupNorm(k, 2 * k, compute_dtype=dtype)
         self.mamba = Mamba(d_model=k, d_state=16, d_conv=4, expand=2, nslices=num_slices,
                            dtype=dtype, generator=generator)
         self.altho = nn.Parameter(torch.tensor(math.log(math.e - 1.0)))
-        # holds the (k,1) stride-k conv's weights; applied by tap_conv
-        self.dsc_conv_x = Conv2d(in_channels, out_channels, (k, 1), stride=(k, 1))
+        if morph == 0:
+            # holds the (k,1) stride-k conv's weights; applied by tap_conv
+            self.dsc_conv_x = Conv2d(in_channels, out_channels, (k, 1), stride=(k, 1))
+        else:
+            self.dsc_conv_y = Conv2d(in_channels, out_channels, (1, k), stride=(1, k),
+                                     compute_dtype=dtype)
         self.gn = GroupNorm(out_channels // 4, out_channels, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +106,14 @@ class MMConv(nn.Module):
 
     def _sample_conv(self, feat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size
+        if self.morph == 1:
+            b, h, w, _ = feat.shape
+            cols = torch.arange(w, dtype=torch.float32, device=feat.device)[:, None]
+            spread = torch.linspace(-(k // 2), k // 2, k, device=feat.device)
+            # (B, H, W, K) -> (B, H*K, W): the taps of a row become rows
+            y_map = y.permute(0, 1, 3, 2).reshape(b, h * k, w)
+            x_map = (cols + spread).T.expand(b, h, k, w).reshape(b, h * k, w)
+            return self.gn(self.dsc_conv_y(nhwc_to_nchw(sample_at(feat, y_map, x_map))))
         kernel = self.dsc_conv_x.weight.permute(2, 3, 1, 0)  # (F,C,K,1) -> (K,1,C,F)
         out = tap_conv(feat, y, kernel, self.dsc_conv_x.bias, [j - k // 2 for j in range(k)])
         return self.gn(nhwc_to_nchw(out))
@@ -345,7 +364,7 @@ class MM_Net(nn.Module):
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each kernel one forward makes, counted from the
         modules: three fused scans per (v3) Mamba, one tap-conv per MMConv."""
-        mmconvs = sum(isinstance(m, MMConv) for m in self.modules())
+        mmconvs = sum(isinstance(m, MMConv) and m.morph == 0 for m in self.modules())
         return {**kernel_launches(self), "tap_conv": mmconvs}
 
     def kernel_launches_per_train_step(self) -> dict:

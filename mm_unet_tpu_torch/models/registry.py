@@ -1,5 +1,6 @@
-"""Model factory (counterpart of `mm_unet_tpu/models/registry.py`). MM_Net
-and dkDualNet are ported; the rest of the zoo is queued in ROADMAP.md."""
+"""Model factory (counterpart of `mm_unet_tpu/models/registry.py`). MM_Net,
+dkDualNet and UM_Net are ported; the rest of the zoo is queued in
+ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import torch.nn as nn
 def _constructors() -> dict:
     from mm_unet_tpu_torch.models.dkdualnet import dkDualNet
     from mm_unet_tpu_torch.models.mm_unet import MM_Net
+    from mm_unet_tpu_torch.models.um_net import UM_Net
 
-    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet}
+    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet, "UM_Net": UM_Net}
 
 
 def give_model(name: str, device: torch.device | str = "cuda",
@@ -25,7 +27,8 @@ def give_model(name: str, device: torch.device | str = "cuda",
     `sideout_drop`; for dkDualNet the JAX constructor's `in_channels`,
     `out_channels`, `depths`, `dims`, `kernel_size`, `out_dim`,
     `num_slices_list`, `drop_path_rate`, and `scan_impl` (the Mambas'
-    route)."""
+    route); for UM_Net the JAX constructor's `num_classes`,
+    `num_slices_list`, `out_indices` and `heads`."""
     models = _constructors()
     if name not in models:
         raise NotImplementedError(

@@ -1,6 +1,9 @@
-"""DiceFocal loss (counterpart of `mm_unet_tpu/train/losses.py::dice_focal_loss`,
-MONAI semantics: sigmoid Dice per (sample, channel) plus the sigmoid focal
-loss, mean reduction, optionally weighted per sample)."""
+"""Segmentation losses (counterpart of `mm_unet_tpu/train/losses.py`), MONAI
+semantics: DiceFocal (the reference's training loss), Dice, focal,
+Tversky, generalized Dice and the DICE+BCE of the reference's mini
+pipeline. Each takes NCHW logits and binary targets of the same shape and
+an optional per-sample `weight` (B,), and returns a scalar (mean over the
+samples, weight-averaged when `weight` is given)."""
 
 from __future__ import annotations
 
@@ -22,33 +25,102 @@ def _wmean(per_sample: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Te
     return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def dice_loss(logits, targets, smooth_nr: float = 0.0, smooth_dr: float = 1e-5,
+def dice_loss(logits, targets, sigmoid: bool = True, smooth_nr: float = 0.0,
+              smooth_dr: float = 1e-5, squared_pred: bool = False,
               weight: Optional[torch.Tensor] = None):
-    p = torch.sigmoid(logits)
+    """MONAI DiceLoss: 1 - Dice per (sample, channel) over the spatial dims."""
+    p = torch.sigmoid(logits) if sigmoid else logits
     t = targets.to(p.dtype)
     dims = tuple(range(2, p.ndim))
     inter = (p * t).sum(dims)
-    denom = p.sum(dims) + t.sum(dims)
+    if squared_pred:
+        denom = (p * p).sum(dims) + (t * t).sum(dims)
+    else:
+        denom = p.sum(dims) + t.sum(dims)
     return _wmean(1.0 - (2.0 * inter + smooth_nr) / (denom + smooth_dr), weight)
 
 
-def focal_loss(logits, targets, gamma: float = 2.0, weight: Optional[torch.Tensor] = None):
+def focal_loss(logits, targets, gamma: float = 2.0, alpha: Optional[float] = None,
+               weight: Optional[torch.Tensor] = None):
+    """MONAI FocalLoss, sigmoid form: BCE * (1 - p_t)^gamma, times alpha for
+    the positives and 1 - alpha for the negatives when `alpha` is given."""
     t = targets.to(logits.dtype)
     ce = F.binary_cross_entropy_with_logits(logits, t, reduction="none")
     p = torch.sigmoid(logits)
     p_t = p * t + (1 - p) * (1 - t)
-    return _wmean(ce * (1 - p_t) ** gamma, weight)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha is not None:
+        loss = loss * (alpha * t + (1 - alpha) * (1 - t))
+    return _wmean(loss, weight)
 
 
 def dice_focal_loss(logits: torch.Tensor, targets: torch.Tensor, smooth_nr: float = 0.0,
                     smooth_dr: float = 1e-5, gamma: float = 2.0, lambda_dice: float = 1.0,
                     lambda_focal: float = 1.0,
                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits, targets: (B, C, H, W); weight: (B,) or None. Returns a scalar."""
-    return (lambda_dice * dice_loss(logits, targets, smooth_nr, smooth_dr, weight)
-            + lambda_focal * focal_loss(logits, targets, gamma, weight))
+    """The reference's training loss; logits, targets: (B, C, H, W)."""
+    return (lambda_dice * dice_loss(logits, targets, smooth_nr=smooth_nr, smooth_dr=smooth_dr,
+                                    weight=weight)
+            + lambda_focal * focal_loss(logits, targets, gamma=gamma, weight=weight))
 
 
-# the losses `train.trainer.make_loss_fn` can name (the JAX package's
-# LOSS_REGISTRY; its other entries are queued in ROADMAP.md)
-LOSS_REGISTRY = {"dice_focal_loss": dice_focal_loss}
+def tversky_loss(logits, targets, alpha: float = 0.7, beta: float = 0.3,
+                 smooth_nr: float = 1e-5, smooth_dr: float = 1e-5,
+                 weight: Optional[torch.Tensor] = None):
+    """MONAI TverskyLoss (sigmoid): 1 - (TP + s) / (TP + alpha FN + beta FP
+    + s) per (sample, channel)."""
+    p = torch.sigmoid(logits)
+    t = targets.to(p.dtype)
+    dims = tuple(range(2, p.ndim))
+    tp = (p * t).sum(dims)
+    fp = (p * (1 - t)).sum(dims)
+    fn = ((1 - p) * t).sum(dims)
+    return _wmean(1.0 - (tp + smooth_nr) / (tp + alpha * fn + beta * fp + smooth_dr), weight)
+
+
+def generalized_dice_loss(logits, targets, w_type: str = "square", smooth_nr: float = 1e-5,
+                          smooth_dr: float = 1e-5, weight: Optional[torch.Tensor] = None):
+    """MONAI GeneralizedDiceLoss (sigmoid): per sample, the channels weighted
+    by 1 / (target volume)^2 ("square"), 1 / volume ("simple") or 1
+    ("uniform"), the volume floored at 1e-10."""
+    p = torch.sigmoid(logits)
+    t = targets.to(p.dtype)
+    dims = tuple(range(2, p.ndim))
+    ground = t.sum(dims)
+    if w_type == "square":
+        w = 1.0 / torch.clamp(ground * ground, min=1e-10)
+    elif w_type == "simple":
+        w = 1.0 / torch.clamp(ground, min=1e-10)
+    else:
+        w = torch.ones_like(ground)
+    inter = (p * t).sum(dims)
+    denom = p.sum(dims) + ground
+    numer = 2.0 * (w * inter).sum(-1) + smooth_nr
+    return _wmean(1.0 - numer / ((w * denom).sum(-1) + smooth_dr), weight)
+
+
+def dice_bce_loss(logits, targets, smooth: float = 1e-5,
+                  weight: Optional[torch.Tensor] = None):
+    """DICE+BCE of the reference's mini pipeline (`loss.py`): the mean BCE
+    plus one Dice over the whole batch; with `weight`, the BCE is
+    weight-averaged and each sample's probabilities and targets are scaled
+    by its weight before the Dice sums."""
+    t = targets.to(logits.dtype)
+    bce = _wmean(F.binary_cross_entropy_with_logits(logits, t, reduction="none"), weight)
+    p = torch.sigmoid(logits)
+    if weight is not None:
+        wb = weight.to(p.dtype).reshape((-1,) + (1,) * (p.ndim - 1))
+        p, t = p * wb, t * wb
+    return bce + 1 - (2 * (p * t).sum() + smooth) / (p.sum() + t.sum() + smooth)
+
+
+# the losses `train.trainer.make_loss_fn` can name: the JAX package's
+# LOSS_REGISTRY, under its names
+LOSS_REGISTRY = {
+    "dice_focal_loss": dice_focal_loss,
+    "dice_loss": dice_loss,
+    "focal_loss": focal_loss,
+    "focal_tversky": tversky_loss,
+    "generalized_dice": generalized_dice_loss,
+    "dice_bce": dice_bce_loss,
+}

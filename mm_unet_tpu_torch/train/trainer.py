@@ -64,7 +64,7 @@ def make_loss_fn(loss_functions: Mapping[str, Mapping], loss_weights: Mapping[st
             base = name if name in LOSS_REGISTRY else name.replace("_loss", "") + "_loss"
             fn = LOSS_REGISTRY.get(name, LOSS_REGISTRY.get(base))
             if fn is None:
-                raise NotImplementedError(f"loss {name!r} is not ported yet; see ROADMAP.md")
+                raise KeyError(f"loss {name!r} is not in LOSS_REGISTRY {sorted(LOSS_REGISTRY)}")
             val = fn(logits, labels, weight=weight, **kwargs)
             losses[name] = val
             total = total + loss_weights.get(name, 1.0) * val

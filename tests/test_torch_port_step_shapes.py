@@ -41,3 +41,28 @@ def test_tap_step_shapes_match_the_tap_conv_calls(monkeypatch):
     with torch.no_grad():  # the hooks are gone
         model(x)
     assert sum(shapes.values()) == model.kernel_launches_per_forward()["tap_conv"]
+
+
+def test_tap_step_shapes_cover_um_net_dsconvs(monkeypatch):
+    """The same recorder on UM_Net, whose tap-convs are its 16 DSConvs'."""
+    from mm_unet_tpu_torch.models import dsconv
+
+    model = give_model("UM_Net", device="cpu", generator=torch.Generator().manual_seed(0))
+    seen: dict = {}
+    plain = dsconv.tap_conv
+
+    def watched(feat, y, kernel, bias, shifts):
+        b, h, w, c = feat.shape
+        key = (b, h, w, c, kernel.shape[-1], kernel.shape[0], str(feat.dtype)[6:])
+        seen[key] = seen.get(key, 0) + 1
+        return plain(feat, y, kernel, bias, shifts)
+
+    monkeypatch.setattr(dsconv, "tap_conv", watched)
+    shapes, hooks = chip_smoke.tap_step_shapes(model)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 3, 64, 64), np.float32))
+    with torch.no_grad():
+        model.eval()(x)
+    for h in hooks:
+        h.remove()
+    assert sum(shapes.values()) == model.kernel_launches_per_forward()["tap_conv"] == 16
+    assert shapes == seen
