@@ -19,7 +19,9 @@ any failure ends the run non-zero):
    on the card against the plain versions on the CPU, same weights; then
    the gradients of every parameter of an MM_Net with full-width channels
    and depths (1,1,1,1) in train mode, card against CPU, in f32 and with
-   the bf16 feature path (the tap-conv's tensor cores);
+   the bf16 feature path (the tap-conv's tensor cores), with every
+   tap-conv call of the card's pass also held to the plain version at its
+   own inputs and output gradient;
 3. the serving path: full-width MM_Net in bf16 through `make_predictor`,
    512² sliding windows (overlap 0.5) over a synthetic DRIVE-like batch of 8
    and one 704² image, DiceFocal and the shared metrics through
@@ -61,13 +63,16 @@ any failure ends the run non-zero):
    grouped selective scan (kernels 5/6), eval logits and every parameter
    gradient of one train-mode pass, each relative to its own tensor;
 8. UM_Net (f32, seeded init, full width): (a) eval logits at 1x3x128² on
-   the card against the plain model on the CPU, per element; (b) its two
+   the card against the plain model on the CPU, per element, then every
+   tap-conv call of one train-mode pass there against the plain version at
+   its own inputs and output gradient; (b) its two
    Mamba routes against each other at 2x3x512² as phase 7 holds MM_Net's;
    (c) `val_one_epoch` over 512² sliding windows (two batches of 8, f32
    predictor) with exact launch counts, then images/s; (d) six
    `train_step`s at 512² batch 8 (finite, falling losses, exact launch
    counts per step, train images/s, peak memory); (e) kernels 1-4 alone at
-   every shape one of those steps gave them (`phase8 ..._step` lines).
+   every shape one of those steps gave them (`phase8 ..._step` lines), the
+   tap-conv's forward and backward there also against the plain version.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
@@ -139,9 +144,15 @@ MM_ROUTE_TOL = 5e-2
 # small gradient carries the rounding of the large ones it is summed from
 # (the line's `unfloored` entry). Largest sound reading 2.3 (on
 # `encoder4.0.block1.3.gn_offset.weight`); a planted fault
-# that skips a tensor-core k-slice of the tap-conv fails it (PERF.md §6)
+# that skips a tensor-core k-slice of the tap-conv fails it (PERF.md §6).
+# The same noise moves the whole gradient vector by 0.39 of its norm
+# (relative L2 over the tensors not held to zero; the k-slice fault, 4.7).
+# So the model-level check finds faults that move many tensors and passes a
+# single wrong small one; `TapCalls` holds every tap-conv call of the pass
+# to its plain version at TOL / BWD_TOL, which a single wrong output fails
 BF16_GRAD_TOL = 4.0
 BF16_GRAD_FLOOR = 1e-2
+BF16_GRAD_NORM_TOL = 1.0
 # UM_Net, f32: the full-width model's eval logits, kernels on the card vs
 # plain versions on the CPU, per element as `rel_err` (largest sound
 # reading 5.5e-6); route a vs route b on the card, logits per element and
@@ -453,6 +464,92 @@ class RowPins:
             m.__dict__.pop("_sample_conv", None)
 
 
+class TapCalls:
+    """Every tap-conv call a model makes while this context is open, where
+    the morph-0 sample-conv makes it (`layers.row_sample_conv`): the call's
+    inputs and output, the gradient of its output, and the gradient the call
+    gave each input (tensor hooks). `check(tag)` holds each call to the plain
+    version at those very inputs: the output (TOL) and each input's gradient
+    against autograd of `tap_conv_ref` with the same output gradient
+    (BWD_TOL), per element as `rel_err`; the kernels at the data and shapes
+    the model gives them, each call on its own, so that a single wrong call
+    fails however little it moves the model's gradients. dbias is held to
+    the size of its summands (its largest |dbias - plain| over the largest
+    sum of |dout| over the pixels): the GroupNorm after every tap-conv
+    makes dout sum to zero over each group, so a model's dbias cancels to
+    where summation order moves it by a third (0.37, f32, UM_Net), while
+    on phase 1's random data it is held per element."""
+
+    def __init__(self):
+        from mm_unet_tpu_torch.models import layers
+
+        self.layers, self.calls, self.handles = layers, [], []
+
+    def __enter__(self):
+        fn = self.plain = self.layers.tap_conv
+
+        def watched(feat, y, kernel, bias, shifts):
+            ins = (feat, y, kernel, bias)
+            out = fn(*ins, shifts)
+            rec = {"inputs": [t.detach() for t in ins], "shifts": list(shifts),
+                   "out": out.detach(), "grads": [None] * 4, "dout": None}
+            if out.requires_grad:
+                out.register_hook(lambda g: rec.__setitem__("dout", g.detach()))
+                for i, t in enumerate(ins):
+                    if t.requires_grad:
+                        self.handles.append(t.register_hook(
+                            lambda g, i=i: rec["grads"].__setitem__(i, g.detach())))
+            self.calls.append(rec)
+            return out
+
+        self.layers.tap_conv = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.tap_conv = self.plain
+        for h in self.handles:
+            h.remove()
+
+    def check(self, tag: str) -> bool:
+        """Prints one line for all calls (the worst forward and backward
+        readings, with their shapes) and returns whether every call is within
+        its limits; a call whose backward did not run is a miss."""
+        from mm_unet_tpu_torch.ops.tap_conv import tap_conv_ref
+
+        names = ["feat", "y", "kernel", "bias"]
+        worst_f, worst_b, bad = (-1.0, None), (-1.0, None), 0
+        for rec in self.calls:
+            feat, y, kernel, bias = rec["inputs"]
+            dtype = feat.dtype
+            shape = dict(B=feat.shape[0], H=feat.shape[1], W=feat.shape[2], C=feat.shape[3],
+                         F=kernel.shape[-1], K=kernel.shape[0], dtype=str(dtype)[6:])
+            with torch.no_grad():
+                _, rel_f = rel_err(rec["out"], tap_conv_ref(*rec["inputs"], rec["shifts"]))
+            ok = rel_f <= TOL[dtype]
+            worst_f = max(worst_f, (rel_f, shape), key=lambda w: w[0])
+            if rec["dout"] is None or any(g is None for g in rec["grads"]):
+                bad += 1
+                continue
+            want = grads_of(lambda *a: tap_conv_ref(*a, rec["shifts"]), rec["inputs"],
+                            rec["dout"])[2]
+            errs, _ = compare_grads(rec["grads"][:3], want[:3], names[:3], BWD_TOL[dtype])
+            # dbias, a sum of dout over the pixels, against the size of its
+            # summands: behind a GroupNorm the sum cancels nearly to zero
+            err = (rec["grads"][3].float() - want[3].float()).abs().max().item()
+            errs["bias"] = [err, err / rec["dout"].float().abs().sum((0, 1, 2)).max().item()]
+            rel_b = max(r for _, r in errs.values())
+            ok_b = rel_b <= BWD_TOL[dtype]
+            worst_b = max(worst_b, (rel_b, dict(shape, errs=errs)), key=lambda w: w[0])
+            bad += not (ok and ok_b)
+        ok = bad == 0 and bool(self.calls)
+        print(f"{tag} " + json.dumps(dict(
+            calls=len(self.calls), out_of_tol=bad, fwd_rel_err=worst_f[0], fwd_worst=worst_f[1],
+            bwd_rel_err=worst_b[0], bwd_worst=worst_b[1],
+            tol={str(d)[6:]: [TOL[d], BWD_TOL[d]] for d in (torch.float32, torch.bfloat16)},
+            ok=ok)), flush=True)
+        return ok
+
+
 SERVING_REPS = 10
 SERVING_PASSES = 2 * (1 + SERVING_REPS)  # per `serving_rates` call: two predictors
 
@@ -739,18 +836,22 @@ TAP_FWD_KERNELS = ("tap_conv_kernel",)
 TAP_BWD_GROUPS = {"dfeat": ("tap_dfeat",), "dkernel": ("tap_dkernel",)}
 
 
-def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[list, list]:
+def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
+                           check: bool = False) -> tuple[list, list]:
     """Kernels 3 and 4 alone at every shape that a train step gives them
     (from `tap_step_shapes`): kernel 3 as a forward-only call of `tap_conv`
     under `torch.no_grad()`, kernel 4 as `torch.autograd.grad` through it,
     rows reaching past both edges as in phase 1; each the mean of 3 calls
     after one (`ms`, CUDA events, host included) and the device time of its
     kernels in 3 more (`kernel_ms`; kernel 4's also split into its dfeat and
-    dkernel parts). Random inputs made on the card. Timing only: the
-    comparisons are phase 1's. The first shape's lines also carry every
-    device operation of one call (`call_ops`: the wrapper's own launches
-    beside the kernels'). Returns (forward, backward) records."""
-    from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+    dkernel parts). Random inputs made on the card. With `check`, each
+    shape's output is also held to `tap_conv_ref`'s on the same inputs (TOL)
+    and each input's gradient to autograd of it (BWD_TOL), per element as
+    `rel_err`, and a miss fails the run after every shape is printed;
+    without it the comparisons are phase 1's. The first shape's lines also
+    carry every device operation of one call (`call_ops`: the wrapper's own
+    launches beside the kernels'). Returns (forward, backward) records."""
+    from mm_unet_tpu_torch.ops.tap_conv import tap_conv, tap_conv_ref
 
     dev = torch.device("cuda")
     cgen = torch.Generator(device=dev).manual_seed(seed)
@@ -758,7 +859,7 @@ def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tupl
     def rn(*s, scale=1.0):
         return torch.randn(*s, generator=cgen, device=dev) * scale
 
-    fwd, bwd = [], []
+    fwd, bwd, failed = [], [], []
     for i, ((B, H, W, C, F, K, dt), calls) in enumerate(sorted(shapes.items())):
         dtype = getattr(torch, dt)
         rows = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None, None]
@@ -771,14 +872,26 @@ def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tupl
             ms = cuda_ms(call, reps=3)
             kms = kernel_device_ms(call, TAP_FWD_KERNELS)
             ops = call_device_ops(call) if i == 0 else None
+            if check:
+                err, rel, ok = compare(call(), tap_conv_ref(*inputs, shifts), dtype)
+                checked = dict(max_abs_err=err, rel_err=rel, tol=TOL[dtype], ok=ok)
         bms, by = bound(*tap_work(B, H, W, C, F, K, inputs[0].element_size(), False))
         rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
-                   **({"call_ops": ops} if ops else {}))
+                   **(checked if check else {}), **({"call_ops": ops} if ops else {}))
         print(f"{tag} tap_conv_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
+        failed += [] if rec.get("ok", True) else [rec]
 
         dout = rn(B, H, W, F).to(dtype)
-        out, live, _ = grads_of(lambda *a: tap_conv(*a, shifts), inputs, dout)
+        out, live, got = grads_of(lambda *a: tap_conv(*a, shifts), inputs, dout)
+        if check:
+            want = grads_of(lambda *a: tap_conv_ref(*a, shifts), inputs, dout)[2]
+            errs, ok = compare_grads(got, want, ["feat", "y", "kernel", "bias"], BWD_TOL[dtype])
+            checked = dict(max_abs_err=max(e for e, _ in errs.values()),
+                           rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype],
+                           errs=errs, ok=ok)
+            del want
+        del got
         call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
         ms = cuda_ms(call, reps=3)
         parts = kernel_device_ms_by(call, TAP_BWD_GROUPS)
@@ -786,11 +899,15 @@ def phase1_tap_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tupl
         bms, by = bound(*tap_work(B, H, W, C, F, K, dout.element_size(), True))
         rec = dict(shape, ms=ms, kernel_ms=sum(parts.values()), dfeat_kernel_ms=parts["dfeat"],
                    dkernel_kernel_ms=parts["dkernel"], bound_ms=bms, bound_by=by,
-                   launches_per_step=calls,
+                   launches_per_step=calls, **(checked if check else {}),
                    **({"call_ops": ops} if ops else {}))
         print(f"{tag} tap_conv_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
+        failed += [] if rec.get("ok", True) else [rec]
         del inputs, dout, out, live
+    if failed:
+        raise SystemExit(f"{tag} FAILED: {len(failed)} tap-conv step shapes disagree with "
+                         "tap_conv_ref")
     return fwd, bwd
 
 
@@ -1024,14 +1141,18 @@ def phase2_bf16_gradients(seed: int) -> None:
     """Every parameter gradient of MM_Net with full-width channels, depths
     (1,1,1,1) and the bf16 feature path (the tap-conv's tensor-core path) in
     train mode, the kernels on the card against the plain versions on the
-    CPU, both bf16, each relative to its own tensor (floored at
-    BF16_GRAD_FLOOR of the model's largest gradient); the biases and norms
-    that feed a train-mode BatchNorm are held to zero. The card samples at
-    the CPU's rows (`RowPins`: the two devices' bf16 offsets differ by
-    rounding, and a row that crosses an integer moves its offset path's
-    gradients by far more). An unpinned card pass, and the pinned one
-    without the floor, are reported beside the check and gate nothing. The
-    line is printed before a failure ends the run."""
+    CPU, both bf16: each relative to its own tensor (floored at
+    BF16_GRAD_FLOOR of the model's largest gradient), the biases and norms
+    that feed a train-mode BatchNorm held to zero, and the whole gradient
+    vector's relative norm. The card samples at the CPU's rows (`RowPins`:
+    the two devices' bf16 offsets differ by rounding, and a row that crosses
+    an integer moves its offset path's gradients by far more). bf16 noise
+    leaves a model-level comparison coarse (module comment at
+    BF16_GRAD_TOL), so each tap-conv call of the card's passes is also held
+    to the plain version at its own inputs (`TapCalls`), where a single
+    wrong output fails. An unpinned card pass, and the pinned one without
+    the floor, are reported beside the check and gate nothing but their
+    calls. The lines are printed before a failure ends the run."""
     from mm_unet_tpu_torch.models import give_model
     from mm_unet_tpu_torch.train.losses import dice_focal_loss
 
@@ -1050,29 +1171,38 @@ def phase2_bf16_gradients(seed: int) -> None:
     cpu_pins.release()
     want = {k: p.grad for k, p in cpu_model.named_parameters()}
     zero = bn_fed_biases(cpu_model)
-    grads = {}
+    grads, calls_ok = {}, True
     for pinned in (True, False):
         gpu_model.zero_grad(set_to_none=True)
         if pinned:
             gpu_pins.pin(cpu_pins.rows)
         t0 = time.perf_counter()
-        dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
-        torch.cuda.synchronize()
+        with TapCalls() as calls:
+            dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
+            torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         gpu_pins.release()
         grads[pinned] = {k: p.grad.detach().clone() for k, p in gpu_model.named_parameters()}
+        tag = f"phase2 bf16 tap-conv calls {'pinned' if pinned else 'unpinned'}"
+        calls_ok = calls.check(tag) and calls_ok
+        del calls
     bad, worst = tensor_grad_errs(grads[True], want, BF16_GRAD_TOL, zero, BF16_GRAD_FLOOR)
     n_free, worst_free = tensor_grad_errs(grads[False], want, BF16_GRAD_TOL, zero,
                                           BF16_GRAD_FLOOR)
     n_bare, worst_bare = tensor_grad_errs(grads[True], want, BF16_GRAD_TOL, zero)
+    live = [k for k in want if k not in zero]
+    norm_rel = math.sqrt(
+        sum((grads[True][k].float().cpu() - want[k].float()).square().sum().item() for k in live)
+        / sum(want[k].float().square().sum().item() for k in live))
     print("phase2 bf16 gradients " + json.dumps(dict(
         params=len(want), out_of_tol=bad, tol_relative=BF16_GRAD_TOL,
         floor_of_largest=BF16_GRAD_FLOOR, worst=worst,
+        norm_rel_err=norm_rel, norm_tol=BF16_GRAD_NORM_TOL,
         sample_rows_max_abs_err=gpu_pins.err,
         unpinned=dict(grads_out_of_tol=n_free, worst=worst_free[:2]),
         unfloored=dict(grads_out_of_tol=n_bare, worst=worst_bare[:2]),
-        gpu_s=t_gpu, cpu_s=t_cpu, ok=bad == 0)), flush=True)
-    if bad:
+        gpu_s=t_gpu, cpu_s=t_cpu, ok=bad == 0 and norm_rel <= BF16_GRAD_NORM_TOL)), flush=True)
+    if bad or norm_rel > BF16_GRAD_NORM_TOL or not calls_ok:
         raise SystemExit("phase2 FAILED: bf16 card gradients disagree with the plain model's")
 
 
@@ -1510,7 +1640,12 @@ def make_um_net(seed: int, device: str = "cuda"):
 def phase8_um_card_vs_cpu(seed: int) -> None:
     """The full-width UM_Net (f32, seeded init) at 1x3x128² in eval mode,
     kernels on the card against the plain versions on the CPU, the same
-    weights; the logits per element as `rel_err`."""
+    weights; the logits per element as `rel_err`. Then one train-mode pass
+    on the card (DiceFocal, backward) with each of its 16 tap-conv calls
+    held to the plain version at its own inputs (`TapCalls`): kernels 3 and
+    4 at 9 taps on UM_Net's data."""
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+
     cpu_model = make_um_net(seed, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     x = torch.from_numpy(np.random.default_rng(seed + 7).standard_normal((1, 3, 128, 128),
@@ -1526,7 +1661,13 @@ def phase8_um_card_vs_cpu(seed: int) -> None:
     print("phase8 um_net card vs cpu " + json.dumps(dict(
         shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=UM_MODEL_TOL, gpu_s=t_gpu,
         cpu_s=t_cpu, ok=ok)), flush=True)
-    if not ok:
+    y = (torch.rand((1, 1, 128, 128), generator=torch.Generator().manual_seed(seed + 7))
+         < 0.2).float()
+    with TapCalls() as calls:
+        dice_focal_loss(gpu_model.train()(x.cuda()), y.cuda()).backward()
+        torch.cuda.synchronize()
+    calls_ok = calls.check("phase8 um_net tap-conv calls")
+    if not (ok and calls_ok):
         raise SystemExit("phase8 FAILED: UM_Net on the card disagrees with the plain model")
 
 
@@ -1764,7 +1905,8 @@ def main() -> None:
     phase8_um_routes(args.seed)
     um_counts, um, um_shapes, um_tap_shapes = phase8_um_path(args.seed, args.profile)
     um_fwd, um_bwd = phase1_step_shapes(um_shapes, args.seed, "phase8")
-    um_tap_fwd, um_tap_bwd = phase1_tap_step_shapes(um_tap_shapes, args.seed, "phase8")
+    um_tap_fwd, um_tap_bwd = phase1_tap_step_shapes(um_tap_shapes, args.seed, "phase8",
+                                                    check=True)
     print(f"phase8 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")

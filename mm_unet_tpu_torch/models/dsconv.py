@@ -26,12 +26,11 @@ import torch.nn as nn
 from mm_unet_tpu_torch.models.layers import (
     Conv2d,
     GroupNorm,
+    grid_sample_conv,
     nchw_to_nhwc,
-    nhwc_to_nchw,
-    sample_at,
+    row_sample_conv,
 )
 from mm_unet_tpu_torch.ops.geometry import accumulate_offsets_from_center_last
-from mm_unet_tpu_torch.ops.tap_conv import tap_conv
 
 
 class DSConv(nn.Module):
@@ -64,14 +63,8 @@ class DSConv(nn.Module):
         acc = accumulate_offsets_from_center_last(offset[..., k:].float())
         x_new = cols + acc * self.extend_scope
         y_new = (rows + spread).expand_as(x_new)
-        deformed = sample_at(nchw_to_nhwc(x), y_new.reshape(b, h, w * k),
-                             x_new.reshape(b, h, w * k))
-        return self.gn(self.dsc_conv_y(nhwc_to_nchw(deformed)))
+        return grid_sample_conv(nchw_to_nhwc(x), y_new.reshape(b, h, w * k),
+                                x_new.reshape(b, h, w * k), self.dsc_conv_y, self.gn)
 
     def _sample_conv(self, feat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Morph 0's row sample and (k,1) stride-k conv, fused: feat (B, H, W,
-        C), y (B, H, W, K) f32 row coordinates -> GroupNorm'd NCHW output."""
-        k = self.kernel_size
-        kernel = self.dsc_conv_x.weight.permute(2, 3, 1, 0)  # (F,C,K,1) -> (K,1,C,F)
-        out = tap_conv(feat, y, kernel, self.dsc_conv_x.bias, [j - k // 2 for j in range(k)])
-        return self.gn(nhwc_to_nchw(out))
+        return row_sample_conv(feat, y, self.dsc_conv_x, self.gn)

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mm_unet_tpu_torch.ops.grid_sample import grid_sample_bilinear
+from mm_unet_tpu_torch.ops.tap_conv import tap_conv
 
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +53,25 @@ def sample_at(feat: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Ten
     y_s = y.clamp(0, h - 1) * (2.0 / max(h - 1, 1)) - 1.0
     x_s = x.clamp(0, w - 1) * (2.0 / max(w - 1, 1)) - 1.0
     return grid_sample_bilinear_nhwc(feat, torch.stack([x_s, y_s], dim=-1))
+
+
+def row_sample_conv(feat: torch.Tensor, y: torch.Tensor, conv: nn.Conv2d,
+                    gn: nn.Module) -> torch.Tensor:
+    """Morph 0 of the deformable convs (MMConv, DSConv): NHWC `feat` (B, H,
+    W, C) sampled at f32 row coordinates y (B, H, W, K), tap j at column
+    clamp(w + j - K//2), and `conv`'s (K,1) stride-(K,1) conv, fused in one
+    `tap_conv`; then `gn`. NCHW out."""
+    k = conv.weight.shape[2]
+    kernel = conv.weight.permute(2, 3, 1, 0)  # (F,C,K,1) -> (K,1,C,F)
+    out = tap_conv(feat, y, kernel, conv.bias, [j - k // 2 for j in range(k)])
+    return gn(nhwc_to_nchw(out))
+
+
+def grid_sample_conv(feat: torch.Tensor, y: torch.Tensor, x: torch.Tensor, conv: nn.Module,
+                     gn: nn.Module) -> torch.Tensor:
+    """Morph 1 of the deformable convs: NHWC `feat` sampled at (y, x) (B,
+    Hg, Wg) by `sample_at`, then `conv` and `gn`. NCHW out."""
+    return gn(conv(nhwc_to_nchw(sample_at(feat, y, x))))
 
 
 def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -33,11 +33,12 @@ from mm_unet_tpu_torch.models.layers import (
     ConvTranspose2d,
     Dropout2d,
     GroupNorm,
+    grid_sample_conv,
     init_flax_style,
     nchw_to_nhwc,
     nhwc_to_nchw,
     resize_bilinear_align_corners,
-    sample_at,
+    row_sample_conv,
 )
 from mm_unet_tpu_torch.models.mamba import Mamba, kernel_launches
 from mm_unet_tpu_torch.ops.geometry import (
@@ -45,7 +46,6 @@ from mm_unet_tpu_torch.ops.geometry import (
     inverse_two_row_flatten_tokens,
     two_row_flatten_tokens,
 )
-from mm_unet_tpu_torch.ops.tap_conv import tap_conv
 
 
 class MMConv(nn.Module):
@@ -113,10 +113,8 @@ class MMConv(nn.Module):
             # (B, H, W, K) -> (B, H*K, W): the taps of a row become rows
             y_map = y.permute(0, 1, 3, 2).reshape(b, h * k, w)
             x_map = (cols + spread).T.expand(b, h, k, w).reshape(b, h * k, w)
-            return self.gn(self.dsc_conv_y(nhwc_to_nchw(sample_at(feat, y_map, x_map))))
-        kernel = self.dsc_conv_x.weight.permute(2, 3, 1, 0)  # (F,C,K,1) -> (K,1,C,F)
-        out = tap_conv(feat, y, kernel, self.dsc_conv_x.bias, [j - k // 2 for j in range(k)])
-        return self.gn(nhwc_to_nchw(out))
+            return grid_sample_conv(feat, y_map, x_map, self.dsc_conv_y, self.gn)
+        return row_sample_conv(feat, y, self.dsc_conv_x, self.gn)
 
 
 class CBAM(nn.Module):

@@ -83,6 +83,15 @@ TAP_EDGES = [
     (9, 11, 24, 16, 1, "integer"),
     (1, 19, 16, 16, 3, "near"),
 ]
+# UM_Net's DSConvs: 9 taps, (C, F) of a side output (64 -> 16), the HPPF
+# (192 -> 12: F not a multiple of 8), a decoder's second conv (16 -> 64: C
+# not a multiple of 8) and RCG (128 -> 64)
+TAP_UM_NET = [
+    (16, 21, 64, 16, 9, "near"),
+    (4, 4, 192, 12, 9, "near"),
+    (12, 17, 16, 64, 9, "far"),
+    (8, 8, 128, 64, 9, "integer"),
+]
 
 
 def _tap_rows(rng, dev, b, h, w, k, rows):
@@ -98,7 +107,8 @@ def _tap_rows(rng, dev, b, h, w, k, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,W,C,F,K,rows", [(24, 24, 64, 64, 3, "near"), (16, 16, 32, 16, 3, "near"),
-                                            (16, 16, 128, 64, 1, "near"), *TAP_EDGES])
+                                            (16, 16, 128, 64, 1, "near"), *TAP_EDGES,
+                                            *TAP_UM_NET])
 def test_tap_conv_kernel_matches_plain(H, W, C, F, K, rows, dtype):
     dev = _device()
     rng = np.random.default_rng(H * C + K + F)
@@ -193,11 +203,11 @@ def test_mamba_fused_backward_without_conv_bias():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,W,C,F,K,rows", [(24, 31, 64, 64, 3, "near"), (16, 23, 32, 16, 3, "near"),
                                             (16, 23, 128, 64, 1, "near"), (1, 8, 8, 24, 3, "near"),
-                                            *TAP_EDGES])
+                                            *TAP_EDGES, *TAP_UM_NET])
 def test_tap_conv_backward_matches_plain(H, W, C, F, K, rows, dtype):
-    """Every dkernel tile shape (F <= 16, <= 32 and wider), K = 1 and 3,
+    """Every dkernel tile shape (F <= 16, <= 32 and wider), K = 1, 3 and 9,
     coordinates past both edges, a single-row map (no row to interpolate
-    towards), and the edges of TAP_EDGES."""
+    towards), the edges of TAP_EDGES and UM_Net's shapes."""
     dev = _device()
     rng = np.random.default_rng(H * C + K + F + 1)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731

@@ -4,7 +4,8 @@
 reads, per forward, the shape of the tap-conv each makes from the module's
 input and weights; the card's timing of kernels 3 and 4 at every shape of
 an MM_Net train step rests on it. Here a small MM_Net (depths (1,1,1,1),
-64², CPU) is run once with `tap_conv` itself watched: the hooks must record
+64², CPU) is run once with `tap_conv` itself watched where the
+morph-0 sample-conv (`layers.row_sample_conv`) calls it: the hooks must record
 as many calls as the model's own count and exactly the (B, H, W, C, F, K,
 dtype) that `tap_conv` was given.
 """
@@ -14,14 +15,14 @@ import torch
 
 import chip_smoke
 from mm_unet_tpu_torch.models import give_model
-from mm_unet_tpu_torch.models import mm_unet
+from mm_unet_tpu_torch.models import layers
 
 
 def test_tap_step_shapes_match_the_tap_conv_calls(monkeypatch):
     model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(0),
                        mamba_dtype=None, depths=(1, 1, 1, 1), num_slices_list=(4, 4, 4, 4))
     seen: dict = {}
-    plain = mm_unet.tap_conv
+    plain = layers.tap_conv
 
     def watched(feat, y, kernel, bias, shifts):
         b, h, w, c = feat.shape
@@ -29,7 +30,7 @@ def test_tap_step_shapes_match_the_tap_conv_calls(monkeypatch):
         seen[key] = seen.get(key, 0) + 1
         return plain(feat, y, kernel, bias, shifts)
 
-    monkeypatch.setattr(mm_unet, "tap_conv", watched)
+    monkeypatch.setattr(layers, "tap_conv", watched)
     shapes, hooks = chip_smoke.tap_step_shapes(model)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 64, 64), np.float32))
     with torch.no_grad():
@@ -45,11 +46,9 @@ def test_tap_step_shapes_match_the_tap_conv_calls(monkeypatch):
 
 def test_tap_step_shapes_cover_um_net_dsconvs(monkeypatch):
     """The same recorder on UM_Net, whose tap-convs are its 16 DSConvs'."""
-    from mm_unet_tpu_torch.models import dsconv
-
     model = give_model("UM_Net", device="cpu", generator=torch.Generator().manual_seed(0))
     seen: dict = {}
-    plain = dsconv.tap_conv
+    plain = layers.tap_conv
 
     def watched(feat, y, kernel, bias, shifts):
         b, h, w, c = feat.shape
@@ -57,7 +56,7 @@ def test_tap_step_shapes_cover_um_net_dsconvs(monkeypatch):
         seen[key] = seen.get(key, 0) + 1
         return plain(feat, y, kernel, bias, shifts)
 
-    monkeypatch.setattr(dsconv, "tap_conv", watched)
+    monkeypatch.setattr(layers, "tap_conv", watched)
     shapes, hooks = chip_smoke.tap_step_shapes(model)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 3, 64, 64), np.float32))
     with torch.no_grad():

@@ -2,8 +2,9 @@
 ResNet-34 encoder (eval, and train mode with its BatchNorm statistics),
 SELayer, HPPF, RCG, NonLocalBlock, ALGM, the decoder and side-output
 blocks, and the whole UM_Net's eval logits at 1x3x64x64 through
-`um_net_pairs`; plus the registry entry, the launch counts, the default
-device and the import boundary.
+`um_net_pairs`; every parameter's and input's gradient of each block and
+of the encoder in eval mode, each held to its own tensor; plus the registry
+entry, the launch counts, the default device and the import boundary.
 
 Weights move across with `jax_to_torch_state_dict` and the reference's pair
 tables (`um_net_pairs` re-rooted at each block, `resnet34_encoder_pairs`;
@@ -12,7 +13,8 @@ pairs), with random BatchNorm running statistics. JAX on the CPU runs its
 Mamba's exact associative scan and its DSConvs' 2-hot matmul; the port runs
 its kernels' plain versions. f32. Tolerances, as max |port - jax| <= tol *
 (1 + max |jax|): 1e-4 for a block (summation orders), 5e-4 for the encoder
-and the whole model (through ~60 layers), BatchNorm statistics 1e-4.
+and the whole model (through ~60 layers), BatchNorm statistics 1e-4; the
+gradients as max |port - jax| <= 1e-4 * max |jax| of each tensor.
 """
 
 import subprocess
@@ -31,7 +33,7 @@ from mm_unet_tpu.utils.torch_convert import (bn_pairs, conv_pairs, dense_pairs, 
 from mm_unet_tpu_torch.models import give_model
 from mm_unet_tpu_torch.models import um_net as tum
 from mm_unet_tpu_torch.models.resnet import ResNet34Encoder
-from mm_unet_tpu_torch.utils.convert import jax_to_torch_state_dict
+from mm_unet_tpu_torch.utils.convert import jax_grads_to_torch, jax_to_torch_state_dict
 from torch_port_harness import assert_close, load_torch, randomize_batch_stats, sub_pairs
 
 PAIRS = um_net_pairs()
@@ -68,6 +70,34 @@ def _check_block(jm, tm, inputs, pairs, what, tol=1e-4):
         assert_close(_nhwc(got), np.asarray(want), tol, what)
 
 
+def _block_grads(jm, tm, inputs, pairs, seed=0):
+    """(port, JAX) gradients of sum(out * dout) with respect to every
+    parameter (by torch name) and every input (`input.i`), eval mode, for a
+    seeded random dout of each output."""
+    v = _init(jm, *inputs)
+    xs = [jnp.asarray(x) for x in inputs]
+    outs = jax.jit(jm.apply)(v, *xs)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    douts = [_rn(seed + 100 + i, *o.shape) for i, o in enumerate(outs)]
+
+    def f(params, *xs_):
+        out = jm.apply({**v, "params": params}, *xs_)
+        out = out if isinstance(out, (list, tuple)) else [out]
+        return sum(jnp.vdot(o, jnp.asarray(d)) for o, d in zip(out, douts))
+
+    gp, *gx = jax.jit(jax.grad(f, argnums=tuple(range(1 + len(xs)))))(v["params"], *xs)
+    want = {k: g.numpy() for k, g in jax_grads_to_torch(jax.device_get(gp), pairs).items()}
+    want.update({f"input.{i}": np.asarray(g) for i, g in enumerate(gx)})
+    load_torch(tm, v, pairs).eval()
+    ts = [_nchw(x).requires_grad_(True) for x in inputs]
+    out = tm(*ts)
+    out = out if isinstance(out, (list, tuple)) else [out]
+    sum((o * _nchw(d)).sum() for o, d in zip(out, douts)).backward()
+    got = {k: p.grad.numpy() for k, p in tm.named_parameters()}
+    got.update({f"input.{i}": _nhwc(t.grad) for i, t in enumerate(ts)})
+    return got, want
+
+
 def test_resnet34_encoder_matches_jax_eval_and_train():
     """The five outputs in eval mode; in train mode the outputs and every
     updated BatchNorm running statistic."""
@@ -99,9 +129,7 @@ def test_resnet34_encoder_matches_jax_eval_and_train():
 
 
 def test_selayer_matches_jax():
-    pairs = dense_pairs(("Dense_0",), "fc.0", bias=False) + dense_pairs(("Dense_1",), "fc.2",
-                                                                        bias=False)
-    _check_block(jum.SELayer(32), tum.SELayer(32), [_rn(1, 2, 5, 6, 32)], pairs, "SELayer")
+    _check_block(*_GRAD_CASES["SELayer"](), "SELayer")
 
 
 def test_hppf_matches_jax():
@@ -172,6 +200,55 @@ def test_algm_matches_jax(cascade):
         got = tm(_nchw(x), [_nchw(y) for y in ys])
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(_nhwc(g), np.asarray(w), 1e-4, f"ALGM output {i}")
+
+
+_SE_PAIRS = dense_pairs(("Dense_0",), "fc.0", bias=False) + dense_pairs(("Dense_1",), "fc.2",
+                                                                        bias=False)
+# name -> () -> (JAX module, port module, NHWC inputs, pairs): the blocks of
+# the tests above at their sizes
+_GRAD_CASES = {
+    "SELayer": lambda: (jum.SELayer(32), tum.SELayer(32), [_rn(1, 2, 5, 6, 32)], _SE_PAIRS),
+    "HPPF": lambda: (jum.HPPF(192), tum.HPPF(192),
+                     [_rn(2, 1, 16, 16, 64), _rn(3, 1, 8, 8, 64), _rn(4, 1, 4, 4, 64)],
+                     sub_pairs(("HPPF_0",), "hpp.", PAIRS)),
+    "RCG": lambda: (jum.RCG(), tum.RCG(),
+                    [_rn(5, 1, 8, 8, 1), _rn(6, 1, 20, 20, 64), _rn(7, 1, 8, 8, 64)],
+                    sub_pairs(("RCG_0",), "rcg4.", PAIRS)),
+    "DecoderBlock": lambda: (jum.DecoderBlock(128, 64), tum.DecoderBlock(128, 64),
+                             [_rn(128, 2, 6, 6, 128)],
+                             sub_pairs(("DecoderBlock_1",), "decoder4.", PAIRS)),
+    "SideoutBlock": lambda: (jum.SideoutBlock(64, 1), tum.SideoutBlock(64, 1),
+                             [_rn(64, 2, 6, 6, 64)], sub_pairs(("SideoutBlock_0",), "side5.", PAIRS)),
+    "NonLocalBlock": lambda: (jum.NonLocalBlock(8), tum.NonLocalBlock(8), [_rn(8, 2, 6, 8, 8)],
+                              _nonlocal_pairs((), "")),
+    "ResNet34Encoder": lambda: (JResNet34Encoder(), ResNet34Encoder(), [_rn(0, 1, 64, 64, 3)],
+                                resnet34_encoder_pairs(fpath=())),
+}
+
+
+# gradients that are zero in exact arithmetic: phi's GroupNorm bias shifts
+# every key of the non-local attention alike, which the softmax over the keys
+# removes
+_EXACT_ZERO = {"NonLocalBlock": {"phi.gn.bias"}}
+
+
+@pytest.mark.parametrize("name", list(_GRAD_CASES))
+def test_block_gradients_match_jax(name):
+    """Every parameter's and input's gradient of sum(out * dout) in eval mode,
+    each held to its own tensor: max |port - jax| <= 1e-4 * max |jax| of that
+    tensor (largest reading 5.5e-6, NonLocalBlock's W.0.offset_conv.bias), so
+    that a zeroed or negated gradient fails however small the tensor (RCG's
+    Mamba dt_proj weights are at 1e-7 here). A gradient that is zero in exact
+    arithmetic is held to zero against the block's largest gradient."""
+    got, want = _block_grads(*_GRAD_CASES[name]())
+    assert set(got) == set(want)
+    top = max(np.abs(w).max() for w in want.values())
+    for k, w in want.items():
+        if k in _EXACT_ZERO.get(name, ()):
+            assert max(np.abs(got[k]).max(), np.abs(w).max()) <= 1e-4 * top, k
+        else:
+            err = np.abs(got[k].astype(np.float64) - w).max()
+            assert err <= 1e-4 * np.abs(w).max(), (k, err, np.abs(w).max())
 
 
 def test_um_net_eval_matches_jax():
