@@ -72,7 +72,21 @@ any failure ends the run non-zero):
    `train_step`s at 512² batch 8 (finite, falling losses, exact launch
    counts per step, train images/s, peak memory); (e) kernels 1-4 alone at
    every shape one of those steps gave them (`phase8 ..._step` lines), the
-   tap-conv's forward and backward there also against the plain version.
+   tap-conv's forward and backward there also against the plain version;
+9. the config-driven entry points (`mm_unet_tpu_torch.cli`) at config.yml's
+   DRIVE settings (MM_Net at full width, 512², batch 4, the synthetic set
+   of 8 train and 2 val images), in a fresh working directory: (a)
+   `cli.train.main` for 2 epochs (finite step losses, `best` and
+   `checkpoint` with their metadata, every parameter on the card, exact
+   launches of kernels 1-4 in training and of 1 and 3 in validation,
+   train images/s and peak memory); (b) resume to 3 epochs (it starts at
+   epoch 3 with step 4, the model's, optimizer's and dropout generator's
+   state bit for bit the file's, the first step at the schedule's lr for
+   step 4); (c) a real SIGTERM during the first epoch of a fresh run (exit
+   code 0, a `checkpoint` of epoch 0, the signal handlers put back); (d)
+   `cli.test.main` on `best` (its f1 and Dice within 1e-3 of those stored
+   with it, HD95 finite or NaN); (e) `cli.verify.main` (a warm-up epoch,
+   then validation with HD95).
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
@@ -1213,14 +1227,15 @@ def phase3_serving(seed: int, profile: bool = False) -> dict:
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.ops.tap_conv import tap_conv
     from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
-    from mm_unet_tpu_torch.train.losses import dice_focal_loss
     from mm_unet_tpu_torch.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.predictor import make_predictor
+    from mm_unet_tpu_torch.train.trainer import make_loss_fn
 
     model = give_model("MM_Net", device="cuda", generator=torch.Generator().manual_seed(seed))
     per_forward = model.kernel_launches_per_forward()
     batches = [synthetic_batch(8, 512, seed), synthetic_batch(1, 704, seed + 1)]
     inferer = SlidingWindowInferer(roi_size=(512, 512), overlap=0.5)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
     logits = []
 
     def infer(images, predictor):
@@ -1232,7 +1247,7 @@ def phase3_serving(seed: int, profile: bool = False) -> dict:
     forwards = 2
     mamba_fused_scan.launches = tap_conv.launches = 0
     t0 = time.perf_counter()
-    f1, metric, losses = val_one_epoch(model, dice_focal_loss, infer, batches, build_metrics())
+    f1, metric, losses = val_one_epoch(model, loss_fn, infer, batches, build_metrics())
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
     launches = {"mamba_fused_scan": mamba_fused_scan.launches, "tap_conv": tap_conv.launches}
@@ -1415,7 +1430,6 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
-    from mm_unet_tpu_torch.train.losses import dice_focal_loss
     from mm_unet_tpu_torch.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
 
@@ -1439,6 +1453,7 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     per_forward = {k: {"fwd": v, "bwd": 0} for k, v in model.kernel_launches_per_forward().items()}
     batches = [synthetic_batch(8, 512, seed + 4), synthetic_batch(8, 512, seed + 5)]
     inferer = SlidingWindowInferer(roi_size=(512, 512), overlap=0.5)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
     logits = []
 
     def infer(images, predictor):
@@ -1448,7 +1463,7 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
 
     reset()
     t0 = time.perf_counter()
-    f1, metric, losses = val_one_epoch(model, dice_focal_loss, infer, batches, build_metrics())
+    f1, metric, losses = val_one_epoch(model, loss_fn, infer, batches, build_metrics())
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
     got = read()
@@ -1478,7 +1493,6 @@ def phase6_dkdualnet_path(seed: int, profile: bool = False) -> dict:
     config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, steps_per_epoch=10**6,
                               weight_decay=0.05, optimizer="adamw")}
     state = create_train_state(model, config, seed=seed)
-    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
 
     def steps(n):
         losses, times, counts_ok = [], [], True
@@ -1706,7 +1720,6 @@ def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, 
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.ops.tap_conv import tap_conv
     from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
-    from mm_unet_tpu_torch.train.losses import dice_focal_loss
     from mm_unet_tpu_torch.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.predictor import make_predictor
     from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
@@ -1725,6 +1738,7 @@ def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, 
     per_step = model.kernel_launches_per_train_step()
     batches = [synthetic_batch(8, 512, seed + 9), synthetic_batch(8, 512, seed + 10)]
     inferer = SlidingWindowInferer(roi_size=(512, 512), overlap=0.5)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
     logits = []
 
     def infer(images, predictor):
@@ -1734,7 +1748,7 @@ def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, 
 
     reset()
     t0 = time.perf_counter()
-    f1, metric, losses = val_one_epoch(model, dice_focal_loss, infer, batches, build_metrics())
+    f1, metric, losses = val_one_epoch(model, loss_fn, infer, batches, build_metrics())
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
     got = read()
@@ -1772,7 +1786,6 @@ def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, 
     config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, steps_per_epoch=10**6,
                               weight_decay=0.05, optimizer="adamw")}
     state = create_train_state(model, config, seed=seed)
-    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
     train = {name: 0 for _, name in counters} | {f"{name}_bwd": 0 for _, name in counters}
     mamba_shapes, hooks = mamba_step_shapes(model)
     tap_shapes, tap_hooks = tap_step_shapes(model)
@@ -1810,6 +1823,252 @@ def phase8_um_path(seed: int, profile: bool = False) -> tuple[dict, dict, dict, 
         profile_step("um_net train", lambda: train_step(state, x, y, loss_fn))
     counts = {"per_forward": per_forward, "per_train_step": per_step}
     return counts, {"serve": serve, "train": train}, mamba_shapes, tap_shapes
+
+
+class Capture:
+    """Tees sys.stdout into a buffer while open (the entry points' Logger
+    tees on top of it and puts it back when they close)."""
+
+    def __enter__(self):
+        import io
+
+        self.prev, self.buf = sys.stdout, io.StringIO()
+        sys.stdout = self
+        return self
+
+    def write(self, data):
+        self.prev.write(data)
+        self.buf.write(data)
+
+    def flush(self):
+        self.prev.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.prev
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+def cli_config(name: str, epochs: int, resume: bool = False):
+    """config.yml's trainer and DRIVE sections as a ConfigDict (the GPU
+    machine has no PyYAML): MM_Net at full width with its default depths,
+    `mamba_dtype` and remat, 512², batch 4, DRIVE's mean and std, no data
+    root (the synthetic set: 8 train images, 2 steps per epoch, 2 val)."""
+    from mm_unet_tpu_torch.utils import ConfigDict
+
+    return ConfigDict(
+        trainer=dict(num_epochs=epochs, warmup=1, train_ratio=0.8, lr=1e-3, min_lr=1e-7,
+                     optimizer="adamw", weight_decay=0.05, resume=resume, seed=50,
+                     dataset_choose="DRIVE"),
+        dataset=dict(DRIVE=dict(data_root="", batch_size=4, num_workers=4, image_size=512,
+                                image_mean=[0.485, 0.456, 0.406],
+                                image_std=[0.229, 0.224, 0.225])),
+        finetune=dict(checkpoint=name, model_choose="MM_Net"),
+        models=dict(MM_Net=dict(branch1=dict(num_classes=1), branch5=dict(num_classes=5))),
+    )
+
+
+def same_tensors(a, b) -> bool:
+    """Bit-for-bit equality of two nested dicts/lists of tensors and values."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_tensors(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def phase9_cli(seed: int) -> dict:
+    """The config-driven entry points at config.yml's DRIVE settings, in a
+    fresh working directory: (a) `cli.train.main` for 2 epochs; (b) resume
+    to 3 epochs through `setup` + `fit` (what `main` runs); (c) a real
+    SIGTERM during the first epoch of a fresh run; (d) `cli.test.main` on
+    the best checkpoint; (e) `cli.verify.main`. Returns each kernel's
+    launches in (a)'s training and validation."""
+    import glob
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from mm_unet_tpu_torch.cli import test as cli_test
+    from mm_unet_tpu_torch.cli import train as cli_train
+    from mm_unet_tpu_torch.cli import verify as cli_verify
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+    from mm_unet_tpu_torch.utils.tracker import read_scalars
+
+    counters = ((mamba_fused_scan, "mamba_fused_scan"), (tap_conv, "tap_conv"))
+
+    def reset():
+        for fn, _ in counters:
+            fn.launches = fn.bwd_launches = 0
+
+    def read() -> dict:
+        return {**{name: fn.launches for fn, name in counters},
+                **{f"{name}_bwd": fn.bwd_launches for fn, name in counters}}
+
+    def scalars(prefix: str) -> list:
+        (path,) = glob.glob(os.path.join("logs", f"{prefix}*", "scalars.jsonl"))
+        return read_scalars(path)
+
+    def meta(name: str, tag: str) -> dict:
+        with open(os.path.join("model_store", name, f"{tag}_meta.json")) as f:
+            return json.load(f)
+
+    def report(tag: str, ok: bool, **fields):
+        print(f"phase9 {tag} " + json.dumps(dict(**fields, ok=ok)), flush=True)
+        if not ok:
+            raise SystemExit(f"phase9 FAILED: {tag}")
+
+    train_fn, val_fn = cli_train.train_one_epoch, cli_train.val_one_epoch
+    home, synth_n = os.getcwd(), os.environ.get("MMU_SYNTH_N")
+    os.environ.pop("MMU_SYNTH_N", None)  # the default synthetic set: max(2 * batch, 8)
+    work = tempfile.mkdtemp(prefix="mmu_phase9_")
+    os.chdir(work)
+    try:
+        # (a) train 2 epochs; the wrappers read the counters around each
+        # validation (train = the run's launches less validation's) and see
+        # the model and the loaders the loop was given
+        seen = {"val": {k: 0 for k in read()}, "pipelines": set()}
+
+        def counted_val(model, loss_fn, inferer, val_loader, *args, **kwargs):
+            before = read()
+            seen["on_card"] = all(t.is_cuda for t in (*model.parameters(), *model.buffers()))
+            seen["per_forward"] = model.kernel_launches_per_forward()
+            seen["per_step"] = model.kernel_launches_per_train_step()
+            out = val_fn(model, loss_fn, inferer, val_loader, *args, **kwargs)
+            seen["val"] = {k: seen["val"][k] + v - before[k] for k, v in read().items()}
+            seen["pipelines"].add(f"val {val_loader.pipeline}")
+            return out
+
+        def seen_train(state, loss_fn, train_loader, *args, **kwargs):
+            out = train_fn(state, loss_fn, train_loader, *args, **kwargs)
+            seen["pipelines"].add(f"train {train_loader.pipeline}")
+            return out
+
+        cli_train.val_one_epoch, cli_train.train_one_epoch = counted_val, seen_train
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        rc = cli_train.main(cli_config("MM_Net", 2), "cuda")
+        t_a = time.perf_counter() - t0
+        cli_train.val_one_epoch, cli_train.train_one_epoch = val_fn, train_fn
+        total = read()
+        val = seen["val"]
+        train = {k: v - val[k] for k, v in total.items()}
+        per_fwd, per_step = seen["per_forward"], seen["per_step"]
+        # 2 epochs x 2 steps; 2 epochs x 2 val images, one 512² window each
+        want_train = {**{k: 4 * per_step[k]["fwd"] for k in per_fwd},
+                      **{f"{k}_bwd": 4 * per_step[k]["bwd"] for k in per_fwd}}
+        want_val = {**{k: 4 * v for k, v in per_fwd.items()}, **{f"{k}_bwd": 0 for k in per_fwd}}
+        events = scalars("MM_Net")
+        step_losses = [e["Train/total_loss"] for e in events if "Train/total_loss" in e]
+        rates = [e["Train/images_per_sec"] for e in events if "Train/images_per_sec" in e]
+        store = os.path.join("model_store", "MM_Net")
+        files = {f: os.path.exists(os.path.join(store, f))
+                 for f in ("best", "best_meta.json", "checkpoint", "checkpoint_meta.json")}
+        ok = (rc == 0 and len(step_losses) == 4 and all(map(math.isfinite, step_losses))
+              and all(files.values()) and meta("MM_Net", "checkpoint")["epoch"] == 2
+              and seen["on_card"] and train == want_train and val == want_val)
+        report("train", ok, rc=rc, step_losses=step_losses, files=files,
+               best_meta=meta("MM_Net", "best") if files["best_meta.json"] else None,
+               launches=dict(train=train, val=val), expected=dict(train=want_train, val=want_val),
+               params_on_card=seen["on_card"], pipelines=sorted(seen["pipelines"]),
+               train_images_per_sec=rates, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               seconds=t_a, card=smi())
+
+        # (b) resume to 3 epochs: the state as the file holds it, step 4, and
+        # the first step at the schedule's lr for step 4
+        t0 = time.perf_counter()
+        with Capture() as out:  # opened before the run's log tee, closed after it
+            s = cli_train.setup(cli_config("MM_Net", 3, resume=True), "cuda")
+            saved = s.manager.read("checkpoint")
+            restored = dict(
+                step=s.state.step, starting_epoch=s.starting_epoch,
+                model=same_tensors(s.state.model.state_dict(), saved["model"]),
+                optimizer=same_tensors(s.state.optimizer.state_dict(), saved["optimizer"]),
+                generator=same_tensors(s.state.generator.get_state(), saved["generator"]))
+            lrs = []
+            s.state.optimizer.register_step_pre_hook(
+                lambda opt, args, kwargs: lrs.append(opt.param_groups[0]["lr"]))
+            rc = cli_train.fit(s)
+        epochs = [ln.split("]")[0] + "]" for ln in out.text.splitlines() if ln.startswith("Epoch [")]
+        ok = (rc == 0 and restored["step"] == 4 and restored["starting_epoch"] == 2
+              and restored["model"] and restored["optimizer"] and restored["generator"]
+              and epochs and set(epochs) == {"Epoch [3/3]"} and lrs[:1] == [s.state.schedule(4)]
+              and len(lrs) == 2)
+        report("resume", ok, rc=rc, restored=restored, epochs=sorted(set(epochs)),
+               first_lr=lrs[:1], schedule_4=s.state.schedule(4), steps=len(lrs),
+               seconds=time.perf_counter() - t0)
+
+        # (c) SIGTERM from a timer thread once the first epoch's first step
+        # is done; the epoch stops at the next step boundary
+        handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+
+        def signalled_train(state, *args, **kwargs):
+            def after_step(*_):
+                hook.remove()
+                threading.Timer(0.0, os.kill, (os.getpid(), signal.SIGTERM)).start()
+
+            hook = state.optimizer.register_step_post_hook(after_step)
+            cli_train.train_one_epoch = train_fn
+            return train_fn(state, *args, **kwargs)
+
+        cli_train.train_one_epoch = signalled_train
+        t0 = time.perf_counter()
+        with Capture() as out:
+            rc = cli_train.main(cli_config("MM_Net_preempt", 2), "cuda")
+        cli_train.train_one_epoch = train_fn
+        after = {sig: signal.getsignal(sig) for sig in handlers}
+        steps_run = [e for e in scalars("MM_Net_preempt") if "Train/total_loss" in e]
+        ok = (rc == 0 and "[preempt] checkpoint saved at epoch 0" in out.text
+              and after == handlers and meta("MM_Net_preempt", "checkpoint")["epoch"] == 0
+              and 1 <= len(steps_run) <= 2
+              and not os.path.exists(os.path.join("model_store", "MM_Net_preempt", "best")))
+        report("preempt", ok, rc=rc, saved_line="[preempt] checkpoint saved at epoch 0" in out.text,
+               handlers_restored=after == handlers, steps_before_stop=len(steps_run),
+               seconds=time.perf_counter() - t0)
+
+        # (d) test on the best checkpoint: its metrics as the run stored them
+        t0 = time.perf_counter()
+        with Capture() as out:
+            rc = cli_test.main(cli_config("MM_Net", 3), "cuda")
+        got = scalars("test_MM_Net")[-1]
+        best = meta("MM_Net", "best")["best_class"]
+        diffs = {k: abs(got[k] - best[k]) for k in ("Val/mean f1", "Val/mean dice_metric")}
+        hd95 = got.get("Val/mean hd95")
+        ok = (rc == 0 and "loaded best checkpoint" in out.text and "test: dice" in out.text
+              and max(diffs.values()) <= 1e-3 and isinstance(hd95, float)
+              and (math.isfinite(hd95) or math.isnan(hd95)))
+        report("test", ok, rc=rc, diffs=diffs, tol=1e-3, hd95=hd95 if hd95 == hd95 else None,
+               dice=got["Val/mean dice_metric"], seconds=time.perf_counter() - t0)
+
+        # (e) verify: one warm-up epoch from the best checkpoint, then validation
+        t0 = time.perf_counter()
+        reset()
+        with Capture() as out:
+            rc = cli_verify.main(cli_config("MM_Net", 3), "cuda")
+        got = scalars("verify_MM_Net")
+        warm = [e["Train/total_loss"] for e in got if "Train/total_loss" in e]
+        ok = (rc == 0 and "verify: best dice" in out.text and len(warm) == 2
+              and all(map(math.isfinite, warm)) and "Val/mean hd95" in got[-1]
+              and read()["mamba_fused_scan_bwd"] == 2 * per_step["mamba_fused_scan"]["bwd"])
+        report("verify", ok, rc=rc, warmup_losses=warm, launches=read(),
+               seconds=time.perf_counter() - t0)
+    finally:
+        cli_train.val_one_epoch, cli_train.train_one_epoch = val_fn, train_fn
+        os.chdir(home)
+        if synth_n is not None:
+            os.environ["MMU_SYNTH_N"] = synth_n
+        shutil.rmtree(work, ignore_errors=True)
+    return {"train": train, "val": val}
 
 
 # kernel-name fragments -> the layer that launched the kernel
@@ -1908,6 +2167,8 @@ def main() -> None:
     um_tap_fwd, um_tap_bwd = phase1_tap_step_shapes(um_tap_shapes, args.seed, "phase8",
                                                     check=True)
     print(f"phase8 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    cli = phase9_cli(args.seed)
+    print(f"phase9 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -1918,6 +2179,10 @@ def main() -> None:
         ("serve", ("mamba_fused_scan", "tap_conv")),
         ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd", "tap_conv", "tap_conv_bwd")))
         for name in names if um[path][name] == 0]
+    unlaunched += [f"{name} (entry points' {path})" for path, names in (
+        ("val", ("mamba_fused_scan", "tap_conv")),
+        ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd", "tap_conv", "tap_conv_bwd")))
+        for name in names if cli[path][name] == 0]
     if unlaunched:
         raise SystemExit(f"chip_smoke: the main paths launched no {unlaunched}")
 
@@ -1929,6 +2194,8 @@ def main() -> None:
                 "launches": paths["train"][name],
                 "launches_by_path": {"serve": paths["serve"].get(name, 0),
                                      "train": paths["train"][name]},
+                **({"cli": {"train": cli["train"][name], "val": cli["val"][name]}}
+                   if name in cli["train"] else {}),
                 "max_abs_err": max(r["max_abs_err"] for r in k[name]),
                 "ms": sum(r["ms"] for r in bf), "plain_ms": sum(r["plain_ms"] for r in bf),
                 "bound_ms": sum(r["bound_ms"] for r in bf), "bound_by": top["bound_by"],

@@ -11,10 +11,17 @@ reference. The package mirrors the reference's module paths:
   and train mode) and their blocks, with the reference's torch module and
   parameter names.
 - ``mm_unet_tpu_torch.train``  — the loss registry, AdamW and its schedule,
-  the train step and epoch, sliding-window inference and the predictor.
+  the train step and epoch, sliding-window inference, the predictor, the
+  metrics (HD95 among them) and checkpoints.
 - ``mm_unet_tpu_torch.evaluate`` — the validation loop.
-- ``mm_unet_tpu_torch.utils.convert`` — JAX variables (and gradients) ->
-  torch names and layouts.
+- ``mm_unet_tpu_torch.data`` and ``mm_unet_tpu_torch.runtime`` — the
+  dataset loaders and transforms (numpy), the synthetic set, and the native
+  C++ batch prep (g++, ``ctypes``).
+- ``mm_unet_tpu_torch.cli`` — the config-driven entry points ``train``,
+  ``test`` and ``verify`` (``python -m mm_unet_tpu_torch.cli.<name>``).
+- ``mm_unet_tpu_torch.utils`` — the config, seeding, the log tee,
+  preemption, the scalar tracker, and JAX variables (and gradients) ->
+  torch names and layouts (``convert``).
 
 Importing the package imports nothing but the standard library; the
 submodules import torch and never jax.

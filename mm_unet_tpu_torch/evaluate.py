@@ -5,7 +5,7 @@ sigmoid > 0.5."""
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Mapping
+from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -15,26 +15,46 @@ from mm_unet_tpu_torch.train.predictor import make_predictor
 
 
 def val_one_epoch(model: nn.Module, loss_fn: Callable, inferer: Callable,
-                  val_loader: Iterable[Mapping], metrics: Mapping):
+                  val_loader: Iterable[Mapping], metrics: Mapping, epoch: int = 0,
+                  num_epochs: int = 1, step: int = 0, tracker=None,
+                  class_names: Optional[Sequence[str]] = None):
     """val_loader yields {"image": (B, 3, H, W), "label": (B, 1, H, W)}
-    numpy or torch batches; they are moved to the model's device. metrics
-    is a dict of metric objects with __call__(y_pred, y) and aggregate().
+    numpy or torch batches; they are moved to the model's device. loss_fn
+    has `trainer.make_loss_fn`'s form, logits, labels -> (total, losses).
+    metrics is a dict of metric objects with __call__(y_pred, y) and
+    aggregate(). Prints each batch's loss and the epoch's metrics; `tracker`
+    gets "Val/total_loss" at `step`, `step` + 1, ... and the metrics at the
+    step after the last batch. With `class_names` (one per output channel,
+    the EDD set's five) each metric also reports "Val/<class> <metric>".
     Returns (mean f1, metric dict, per-batch losses)."""
     device = next(model.parameters()).device
     predictor = make_predictor(model)
+    n_batches = len(val_loader) if hasattr(val_loader, "__len__") else "?"
     losses = []
-    for batch in val_loader:
+    for i, batch in enumerate(val_loader):
         images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
         labels = torch.as_tensor(batch["label"], dtype=torch.float32, device=device)
         logits = inferer(images, predictor)
-        losses.append(float(loss_fn(logits, labels)))
+        total, _ = loss_fn(logits, labels)
+        losses.append(float(total))
         preds = (torch.sigmoid(logits) > 0.5).float().cpu().numpy()
         labels_np = labels.cpu().numpy()
         for m in metrics.values():
             m(y_pred=preds, y=labels_np)
+        print(f"Epoch [{epoch + 1}/{num_epochs}] Validation [{i + 1}/{n_batches}] "
+              f"Loss: {losses[-1]:1.5f}", flush=True)
+        if tracker is not None:
+            tracker.log({"Val/total_loss": losses[-1]}, step=step)
+        step += 1
     metric = {}
     for name, m in metrics.items():
         agg = m.aggregate()
         m.reset()
         metric[f"Val/mean {name}"] = float(np.nanmean(agg))
+        if class_names is not None and np.size(agg) == len(class_names):
+            for cls, v in zip(class_names, np.ravel(agg)):
+                metric[f"Val/{cls} {name}"] = float(v)
+    print(f"Epoch [{epoch + 1}/{num_epochs}] Validation metric {metric}", flush=True)
+    if tracker is not None:
+        tracker.log(metric, step=step)
     return metric.get("Val/mean f1"), metric, losses

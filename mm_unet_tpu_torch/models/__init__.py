@@ -1,5 +1,5 @@
 """Models: MM_Net, dkDualNet, UM_Net and their blocks."""
 
-from mm_unet_tpu_torch.models.registry import give_model
+from mm_unet_tpu_torch.models.registry import give_model, give_model_from_config
 
-__all__ = ["give_model"]
+__all__ = ["give_model", "give_model_from_config"]

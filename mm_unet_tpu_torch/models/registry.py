@@ -1,6 +1,8 @@
-"""Model factory (counterpart of `mm_unet_tpu/models/registry.py`). MM_Net,
-dkDualNet and UM_Net are ported; the rest of the zoo is queued in
-ROADMAP.md."""
+"""Model factory (counterpart of `mm_unet_tpu/models/registry.py`): by name
+(`give_model`) or by `config.finetune.model_choose` with the keyword
+arguments of the config's `models.<name>.branch1` or `branch5` section
+(`give_model_from_config`). MM_Net, dkDualNet and UM_Net are ported; the
+rest of the zoo is queued in ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -42,3 +44,36 @@ def give_model(name: str, device: torch.device | str = "cuda",
             "the caller asks for the CPU with device='cpu'"
         )
     return models[name](generator=generator, **kwargs).to(device).eval()
+
+
+# model_choose -> config.models section key, as the JAX package's registry
+_CONFIG_KEYS = {
+    "TransUNet": "trans_unet", "CFPNet": "cfp_net", "UNETR": "u_netr",
+    "SWINUNETR": "swin_unetr", "DuAT": "duat", "UNet": "unet", "CFANet": "cfa_net",
+    "PVT_CASCADE": "pvt_ca", "UM_Net": "um_net", "CVC_UNETR": "cvc_unetr",
+    "BMANet": "bmanet", "VANet": "vanet",
+}
+# models that never switch to branch5 (the 5-class EDD set keeps branch1)
+_BRANCH1_ONLY = {"UM_Net", "MM_Net", "dkDualNet", "FRUNet", "ConvUNetXt", "UNet3Plus", "ATTUNet"}
+# config keys the JAX MM_Net accepts for config parity and never reads
+_UNUSED = {"MM_Net": ("out_indices", "heads")}
+
+
+def _model_kwargs(config, name: str) -> dict:
+    models_cfg = config.get("models") or {}
+    entry = models_cfg.get(_CONFIG_KEYS.get(name, name), models_cfg.get(name, {})) or {}
+    use5 = config.trainer.get("dataset_choose", "") == "EDD_seg" and name not in _BRANCH1_ONLY
+    kwargs = dict(entry.get("branch5" if use5 else "branch1", {}) or {})
+    for key in _UNUSED.get(name, ()):
+        kwargs.pop(key, None)
+    return kwargs
+
+
+def give_model_from_config(config, device: torch.device | str = "cuda",
+                           generator: Optional[torch.Generator] = None) -> nn.Module:
+    """`give_model(config.finetune.model_choose, device, generator, **kwargs)`
+    with the keyword arguments of the config's branch1 section (branch5 for
+    EDD_seg, except the models that keep branch1), as the JAX package's
+    `give_model(config)` reads them."""
+    name = config.finetune.model_choose
+    return give_model(name, device, generator, **_model_kwargs(config, name))

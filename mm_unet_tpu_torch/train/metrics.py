@@ -1,15 +1,16 @@
 """Segmentation metrics (counterpart of `mm_unet_tpu/train/metrics.py`,
 MONAI semantics): Dice (NaN-aware mean over samples, per channel), mean
-IoU, and f1 / precision / recall / MCC / accuracy from confusion counts
-summed over the epoch. Numpy only.
+IoU, f1 / precision / recall / MCC / accuracy from confusion counts
+summed over the epoch, and the percentile Hausdorff distance (HD95, scipy).
 
-Every metric keeps per-(sample, channel) sufficient statistics: the
-intersection, prediction sum and target sum of binary masks, and the pixel
-count per plane. `update(y_pred, y)` computes them from thresholded
+Every metric but HD95 keeps per-(sample, channel) sufficient statistics:
+the intersection, prediction sum and target sum of binary masks, and the
+pixel count per plane. `update(y_pred, y)` computes them from thresholded
 (B, C, H, W) masks; `update_stats` takes them as `trainer.seg_stats`
-returns them (a `weight` of 0 drops a sample). Every channel counts: the
-training and validation loops keep the background
-(`include_background=True` in the JAX package).
+returns them (a `weight` of 0 drops a sample). `include_background=False`
+drops channel 0 when there is more than one channel, as MONAI does (the JAX
+package's `update` drops it from a single channel too, leaving nothing);
+the loops keep it (`build_metrics(include_background=True)`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def _div(num, den):
 
 
 class Metric:
-    def __init__(self):
+    def __init__(self, include_background: bool = True):
+        self.include_background = include_background
         self.reset()
 
     def reset(self):
@@ -42,13 +44,16 @@ class Metric:
     def update(self, y_pred, y):
         self.update_stats(mask_stats(y_pred, y))
 
-    __call__ = update
+    def __call__(self, y_pred, y):
+        self.update(y_pred, y)
 
     def update_stats(self, stats: dict):
         inter, psum, tsum = (np.asarray(stats[k], np.float64) for k in ("inter", "psum", "tsum"))
         if stats.get("weight") is not None:  # drop padded samples
             keep = np.asarray(stats["weight"]) > 0
             inter, psum, tsum = inter[keep], psum[keep], tsum[keep]
+        if not self.include_background and inter.shape[1] > 1:
+            inter, psum, tsum = inter[:, 1:], psum[:, 1:], tsum[:, 1:]
         self.rows.append((inter, psum, tsum, stats["npix"]))
 
     def _cat(self):
@@ -73,11 +78,11 @@ class ConfusionMatrixMetric(Metric):
     METRICS = ("f1 score", "precision", "recall", "accuracy",
                "matthews correlation coefficient")
 
-    def __init__(self, metric_name: str):
+    def __init__(self, metric_name: str, include_background: bool = True):
         if metric_name not in self.METRICS:
             raise ValueError(metric_name)
         self.metric_name = metric_name
-        super().__init__()
+        super().__init__(include_background)
 
     def aggregate(self) -> np.ndarray:
         tp = sum(i.sum(0) for i, _, _, _ in self.rows)
@@ -98,14 +103,58 @@ class ConfusionMatrixMetric(Metric):
         return np.atleast_1d(v)
 
 
-def build_metrics() -> dict[str, Metric]:
+class HausdorffDistanceMetric(Metric):
+    """Symmetric percentile Hausdorff distance between the surfaces of
+    binary masks, one value per (sample, channel), NaN where either mask is
+    empty; `aggregate` is the NaN-aware mean. Fed by `update` only."""
+
+    def __init__(self, include_background: bool = True, percentile: float = 95.0):
+        self.percentile = percentile
+        super().__init__(include_background)
+
+    def reset(self):
+        self.vals: list[float] = []
+
+    def update_stats(self, stats: dict):
+        raise NotImplementedError("HD95 needs the masks: call update(y_pred, y)")
+
+    @staticmethod
+    def _surface_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Distances from each surface pixel of a to the surface of b."""
+        from scipy import ndimage
+
+        if not a.any() or not b.any():
+            return np.array([np.nan])
+        surface_a = a & ~ndimage.binary_erosion(a)
+        dt_b = ndimage.distance_transform_edt(~(b & ~ndimage.binary_erosion(b)))
+        return dt_b[surface_a]
+
+    def update(self, y_pred, y):
+        p = np.asarray(y_pred).astype(bool)
+        t = np.asarray(y).astype(bool)
+        if not self.include_background and p.shape[1] > 1:
+            p, t = p[:, 1:], t[:, 1:]
+        for n in range(p.shape[0]):
+            for c in range(p.shape[1]):
+                d = np.concatenate([self._surface_distances(p[n, c], t[n, c]),
+                                    self._surface_distances(t[n, c], p[n, c])])
+                self.vals.append(float(np.percentile(d, self.percentile))
+                                 if np.isfinite(d).all() else np.nan)
+
+    def aggregate(self) -> np.ndarray:
+        with np.errstate(invalid="ignore"):
+            return np.asarray([np.nanmean(self.vals)])
+
+
+def build_metrics(include_background: bool = True) -> dict[str, Metric]:
     """The seven metrics of the training and validation loops."""
+    ib = include_background
     return {
-        "dice_metric": DiceMetric(),
-        "miou_metric": MeanIoU(),
-        "f1": ConfusionMatrixMetric("f1 score"),
-        "precision": ConfusionMatrixMetric("precision"),
-        "recall": ConfusionMatrixMetric("recall"),
-        "MCC": ConfusionMatrixMetric("matthews correlation coefficient"),
-        "ACC": ConfusionMatrixMetric("accuracy"),
+        "dice_metric": DiceMetric(ib),
+        "miou_metric": MeanIoU(ib),
+        "f1": ConfusionMatrixMetric("f1 score", ib),
+        "precision": ConfusionMatrixMetric("precision", ib),
+        "recall": ConfusionMatrixMetric("recall", ib),
+        "MCC": ConfusionMatrixMetric("matthews correlation coefficient", ib),
+        "ACC": ConfusionMatrixMetric("accuracy", ib),
     }

@@ -148,9 +148,11 @@ def test_val_one_epoch_matches_its_parts():
     """The validation loop over two batches: its losses are DiceFocal of the
     sliding-window logits, and its metrics are the shared numpy metrics of
     the thresholded prediction (the port's metrics, checked against the
-    JAX package's)."""
+    JAX package's). The loss comes in `make_loss_fn`'s (total, losses) form,
+    as the JAX loop takes it."""
     from mm_unet_tpu.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.metrics import build_metrics as port_build_metrics
+    from mm_unet_tpu_torch.train.trainer import make_loss_fn
 
     model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(5),
                        mamba_dtype=None, **TINY)
@@ -158,7 +160,8 @@ def test_val_one_epoch_matches_its_parts():
     batches = [{"image": rng.standard_normal((n, 3, 64, 64)).astype(np.float32),
                 "label": (rng.random((n, 1, 64, 64)) < 0.3).astype(np.float32)} for n in (2, 1)]
     inferer = SlidingWindowInferer((64, 64), overlap=0.5)
-    f1, metric, losses = val_one_epoch(model, dice_focal_loss, inferer, batches,
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    f1, metric, losses = val_one_epoch(model, loss_fn, inferer, batches,
                                        port_build_metrics())
     predictor = make_predictor(model)
     want_metrics = build_metrics()
