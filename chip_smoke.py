@@ -20,8 +20,9 @@ any failure ends the run non-zero):
    the gradients of every parameter of an MM_Net with full-width channels
    and depths (1,1,1,1) in train mode, card against CPU, in f32 and with
    the bf16 feature path (the tap-conv's tensor cores), with every
-   tap-conv call of the card's pass also held to the plain version at its
-   own inputs and output gradient;
+   tap-conv call and every fused-scan call of the card's pass also held to
+   its plain version at its own inputs and output gradient (`TapCalls`,
+   `FusedCalls`);
 3. the serving path: full-width MM_Net in bf16 through `make_predictor`,
    512² sliding windows (overlap 0.5) over a synthetic DRIVE-like batch of 8
    and one 704² image, DiceFocal and the shared metrics through
@@ -86,11 +87,25 @@ any failure ends the run non-zero):
    code 0, a `checkpoint` of epoch 0, the signal handlers put back); (d)
    `cli.test.main` on `best` (its f1 and Dice within 1e-3 of those stored
    with it, HD95 finite or NaN); (e) `cli.verify.main` (a warm-up epoch,
-   then validation with HD95).
+   then validation with HD95); (f) three `train_one_epoch` steps and two
+   `val_one_epoch` batches under `torch.cuda.set_sync_debug_mode("error")`:
+   nothing waits on the whole stream but the epoch's closing synchronise;
+10. the Mamba LM (`models/lm.py`) at mamba-130m's published widths (d_model
+   768, 24 layers, vocabulary 50280, RMSNorm, fused add+norm; f32, seeded
+   weights): (a) kernel 1 at the scoring shape (batch 4, D 1536, L 2048)
+   against its plain version, with its time, bound and resident blocks per
+   SM; (b) a depth-2 full-width model at 256 tokens, card against CPU; (c)
+   the scoring forward at 4 x 2048 tokens, exactly 24 kernel-1 launches,
+   tokens/s, device time, busy share, peak memory, then the same weights on
+   route b (kernel 5) against route a; (d) `generate` and `generate_scan`
+   (CUDA graph) at batch 1 and 8, prompt 100, 100 new tokens: tokens/s,
+   greedy and sampled tokens equal between the two, teacher-forced step
+   logits against the forward's.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
-on the paths above), and `{"ok": true, "device": {...}}`. Without a CUDA device it exits
+on the paths above; kernel 1's entry carries the LM's under `lm`), and
+`{"ok": true, "device": {...}}`. Without a CUDA device it exits
 non-zero before printing any result. It imports nothing of JAX or of the
 JAX package.
 """
@@ -162,8 +177,9 @@ MM_ROUTE_TOL = 5e-2
 # The same noise moves the whole gradient vector by 0.39 of its norm
 # (relative L2 over the tensors not held to zero; the k-slice fault, 4.7).
 # So the model-level check finds faults that move many tensors and passes a
-# single wrong small one; `TapCalls` holds every tap-conv call of the pass
-# to its plain version at TOL / BWD_TOL, which a single wrong output fails
+# single wrong small one; `TapCalls` and `FusedCalls` hold every tap-conv
+# and every fused-scan call of the pass to its plain version at TOL /
+# BWD_TOL, which a single wrong output or input gradient fails
 BF16_GRAD_TOL = 4.0
 BF16_GRAD_FLOOR = 1e-2
 BF16_GRAD_NORM_TOL = 1.0
@@ -176,6 +192,24 @@ UM_MODEL_TOL = 5e-5
 UM_ROUTE_LOGITS_TOL = MM_ROUTE_LOGITS_TOL
 UM_ROUTE_TOL = MM_ROUTE_TOL
 TRAIN_STEPS = 6
+# the Mamba LM at mamba-130m's published widths (f32): the depth-2 model's
+# logits, kernels on the card vs plain versions on the CPU, per element as
+# `rel_err` (UM_Net's limit); the decoders' teacher-forced step logits
+# (plain ops, one token at a time) against the kernel-1 forward's at the
+# same positions, max |step - forward| over the largest |forward| logit.
+# Scoring: one forward at batch 4 x 2048 tokens (mamba-130m's training
+# context); decoding: prompt 100, 100 new tokens at batch 1 and 8 (the
+# defaults of the reference's benchmark_generation_mamba_simple.py)
+LM_CPU_TOL = 5e-5
+LM_DECODE_TOL = 1e-4
+LM_SCORE = (4, 2048)
+LM_PROMPT, LM_NEW, LM_BATCHES = 100, 100, (1, 8)
+# sampling: top-k 50, then top-p 0.9, at temperature 8. Random weights tie
+# each position's logits to its own token (the head is the embedding: that
+# logit is ~sqrt(d_model) = 27.7 against ~N(0, 1) for the rest), so at
+# temperature 1 every sample is the argmax; at 8 the samples leave the
+# greedy tokens, and the two decoders' agreement means something
+LM_SAMPLING = dict(temperature=8.0, top_k=50, top_p=0.9)
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bytes/s, f32 operations/s outside the tensor cores, and the dense
 # bf16 tensor-core rate; a kernel's bound is the larger of its bytes (each
@@ -553,6 +587,90 @@ class TapCalls:
             errs["bias"] = [err, err / rec["dout"].float().abs().sum((0, 1, 2)).max().item()]
             rel_b = max(r for _, r in errs.values())
             ok_b = rel_b <= BWD_TOL[dtype]
+            worst_b = max(worst_b, (rel_b, dict(shape, errs=errs)), key=lambda w: w[0])
+            bad += not (ok and ok_b)
+        ok = bad == 0 and bool(self.calls)
+        print(f"{tag} " + json.dumps(dict(
+            calls=len(self.calls), out_of_tol=bad, fwd_rel_err=worst_f[0], fwd_worst=worst_f[1],
+            bwd_rel_err=worst_b[0], bwd_worst=worst_b[1],
+            tol={str(d)[6:]: [TOL[d], BWD_TOL[d]] for d in (torch.float32, torch.bfloat16)},
+            ok=ok)), flush=True)
+        return ok
+
+
+class FusedCalls:
+    """Every fused-scan call (kernels 1/2) a model makes while this context
+    is open, where Mamba makes it (`models.mamba.mamba_fused_scan`), recorded
+    as `TapCalls` records the tap-conv's: the inputs, the output, the
+    gradient of the output and the gradient the call gave each input (tensor
+    hooks). `check(tag)` holds each call to `mamba_fused_scan_ref` at those
+    very inputs: the output per element at TOL, and each input's gradient
+    against autograd of the plain version with the same output gradient at
+    BWD_TOL, per element as `rel_err` (the weights' gradients sum over the
+    call's tokens, each element held to its own size, floored at the
+    tensor's rms). One wrong call fails it, however little it moves the
+    model's gradients."""
+
+    NAMES = ("xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D")
+
+    def __init__(self):
+        from mm_unet_tpu_torch.models import mamba
+
+        self.mamba, self.calls, self.handles = mamba, [], []
+
+    def __enter__(self):
+        fn = self.plain = self.mamba.mamba_fused_scan
+
+        def watched(*ins, reverse=False):
+            out = fn(*ins, reverse=reverse)
+            rec = {"inputs": [None if t is None else t.detach() for t in ins],
+                   "reverse": reverse, "out": out.detach(), "grads": [None] * len(ins),
+                   "wants_grad": [t is not None and t.requires_grad for t in ins], "dout": None}
+            if out.requires_grad:
+                out.register_hook(lambda g: rec.__setitem__("dout", g.detach()))
+                for i, t in enumerate(ins):
+                    if t is not None and t.requires_grad:
+                        self.handles.append(t.register_hook(
+                            lambda g, i=i: rec["grads"].__setitem__(i, g.detach())))
+            self.calls.append(rec)
+            return out
+
+        self.mamba.mamba_fused_scan = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.mamba.mamba_fused_scan = self.plain
+        for h in self.handles:
+            h.remove()
+
+    def check(self, tag: str) -> bool:
+        """Prints one line for all calls (the worst forward and backward
+        readings, with their shapes) and returns whether every call is within
+        its limits; a call whose backward did not reach every input that
+        takes a gradient is a miss."""
+        from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan_ref
+
+        worst_f, worst_b, bad = (-1.0, None), (-1.0, None), 0
+        for rec in self.calls:
+            xz, dtype = rec["inputs"][0], rec["inputs"][0].dtype
+            shape = dict(B=xz.shape[0], D=xz.shape[2] // 2, L=xz.shape[3],
+                         R=rec["inputs"][4].shape[2], reverse=rec["reverse"],
+                         dtype=str(dtype)[6:])
+            ref = lambda *a: mamba_fused_scan_ref(*a, reverse=rec["reverse"])  # noqa: E731
+            with torch.no_grad():
+                _, rel_f = rel_err(rec["out"], ref(*rec["inputs"]))
+            ok = rel_f <= TOL[dtype]
+            worst_f = max(worst_f, (rel_f, shape), key=lambda w: w[0])
+            live = [i for i, w in enumerate(rec["wants_grad"]) if w]
+            if rec["dout"] is None or any(rec["grads"][i] is None for i in live):
+                bad += 1
+                continue
+            ins = [None if t is None else t.detach().clone().requires_grad_(i in live)
+                   for i, t in enumerate(rec["inputs"])]
+            want = torch.autograd.grad(ref(*ins), [ins[i] for i in live], rec["dout"])
+            errs, ok_b = compare_grads([rec["grads"][i] for i in live], want,
+                                       [self.NAMES[i] for i in live], BWD_TOL[dtype])
+            rel_b = max(r for _, r in errs.values())
             worst_b = max(worst_b, (rel_b, dict(shape, errs=errs)), key=lambda w: w[0])
             bad += not (ok and ok_b)
         ok = bad == 0 and bool(self.calls)
@@ -1162,9 +1280,10 @@ def phase2_bf16_gradients(seed: int) -> None:
     the two devices' bf16 offsets differ by rounding, and a row that crosses
     an integer moves its offset path's gradients by far more). bf16 noise
     leaves a model-level comparison coarse (module comment at
-    BF16_GRAD_TOL), so each tap-conv call of the card's passes is also held
-    to the plain version at its own inputs (`TapCalls`), where a single
-    wrong output fails. An unpinned card pass, and the pinned one without
+    BF16_GRAD_TOL), so each tap-conv call and each fused-scan call of the
+    card's passes is also held to its plain version at its own inputs
+    (`TapCalls`, `FusedCalls`), where a single wrong output or gradient
+    fails. An unpinned card pass, and the pinned one without
     the floor, are reported beside the check and gate nothing but their
     calls. The lines are printed before a failure ends the run."""
     from mm_unet_tpu_torch.models import give_model
@@ -1191,15 +1310,16 @@ def phase2_bf16_gradients(seed: int) -> None:
         if pinned:
             gpu_pins.pin(cpu_pins.rows)
         t0 = time.perf_counter()
-        with TapCalls() as calls:
+        with TapCalls() as calls, FusedCalls() as fused:
             dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
             torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         gpu_pins.release()
         grads[pinned] = {k: p.grad.detach().clone() for k, p in gpu_model.named_parameters()}
-        tag = f"phase2 bf16 tap-conv calls {'pinned' if pinned else 'unpinned'}"
-        calls_ok = calls.check(tag) and calls_ok
-        del calls
+        kind = "pinned" if pinned else "unpinned"
+        calls_ok = calls.check(f"phase2 bf16 tap-conv calls {kind}") and calls_ok
+        calls_ok = fused.check(f"phase2 bf16 fused-scan calls {kind}") and calls_ok
+        del calls, fused
     bad, worst = tensor_grad_errs(grads[True], want, BF16_GRAD_TOL, zero, BF16_GRAD_FLOOR)
     n_free, worst_free = tensor_grad_errs(grads[False], want, BF16_GRAD_TOL, zero,
                                           BF16_GRAD_FLOOR)
@@ -2071,6 +2191,227 @@ def phase9_cli(seed: int) -> dict:
     return {"train": train, "val": val}
 
 
+class StreamWaits:
+    """Runs its block under `torch.cuda.set_sync_debug_mode("error")`, so
+    that a call that waits on the whole stream (a blocking copy, `.item()`
+    of a card tensor, a stream or device synchronise) raises; an event's
+    synchronise waits on that event alone and passes. `torch.cuda.
+    synchronize` is let through and counted (`synchronizes`)."""
+
+    def __enter__(self):
+        self.real, self.synchronizes = torch.cuda.synchronize, 0
+
+        def counted(device=None):
+            self.synchronizes += 1
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                self.real(device)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        torch.cuda.synchronize = counted
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize = self.real
+
+
+def phase9_stream_waits(seed: int) -> None:
+    """F1: `train_one_epoch` over three batches and `val_one_epoch` over two
+    of MM_Net at phase 9's settings (full width, its default bf16 feature
+    path and remat, 512², batch 4, numpy batches), inside `StreamWaits`: no
+    call may wait on the whole stream but the training epoch's closing
+    synchronise. On a miss the line names the call's last frames."""
+    import traceback
+
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.evaluate import val_one_epoch
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
+    from mm_unet_tpu_torch.train.loop import train_one_epoch
+    from mm_unet_tpu_torch.train.metrics import build_metrics
+    from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn
+
+    model = give_model("MM_Net", device="cuda", generator=torch.Generator().manual_seed(seed))
+    config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, weight_decay=0.05)}
+    state = create_train_state(model, config, seed=seed)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    batches = [synthetic_batch(4, 512, seed + 20 + i) for i in range(5)]
+    inferer = SlidingWindowInferer(roi_size=(512, 512), overlap=0.5)
+    miss, train_syncs, t0 = None, None, time.perf_counter()
+    with Capture() as out, StreamWaits() as waits:
+        try:
+            train_one_epoch(state, loss_fn, batches[:3], build_metrics())
+            train_syncs = waits.synchronizes
+            val_one_epoch(model, loss_fn, inferer, batches[3:], build_metrics())
+        except RuntimeError:
+            miss = traceback.format_exc().strip().splitlines()[-12:]
+    steps = sum(ln.startswith("Epoch [1/1] Training [") for ln in out.text.splitlines())
+    vals = sum(ln.startswith("Epoch [1/1] Validation [") for ln in out.text.splitlines())
+    ok = miss is None and waits.synchronizes == train_syncs == 1 and steps == 3 and vals == 2
+    print("phase9 stream waits " + json.dumps(dict(
+        train_steps=steps, val_batches=vals, synchronizes=waits.synchronizes, miss=miss,
+        seconds=time.perf_counter() - t0, ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase9 FAILED: the loops wait on the whole stream")
+
+
+def phase10_lm(seed: int) -> dict:
+    """The Mamba LM (`models/lm.py`) at mamba-130m's published widths, f32:
+    (a) kernel 1 at the LM's shape against its plain version; (b) a depth-2
+    full-width model, card against CPU; (c) the 24-layer scoring forward at
+    LM_SCORE, exact kernel-1 launches, tokens/s, device time, busy share and
+    peak memory, then the same weights on route b (kernel 5) against route
+    a; (d) both decoders at each of LM_BATCHES: tokens/s, greedy and sampled
+    tokens equal between them, and the teacher-forced step logits against
+    the forward's. Returns the kernel record and the launches."""
+    from mm_unet_tpu_torch.models.lm import (
+        MAMBA_130M, _caches, generate, generate_scan, give_lm, token_step)
+    from mm_unet_tpu_torch.models.mamba import Mamba
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan, mamba_fused_scan_ref
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    cfg, (B, L) = MAMBA_130M, LM_SCORE
+    D, R, N, W = 2 * cfg["d_model"], math.ceil(cfg["d_model"] / 16), 16, 4
+    failed = []
+
+    def report(tag, ok, **fields):
+        print(f"phase10 {tag} " + json.dumps(dict(**fields, ok=ok)), flush=True)
+        failed.extend([] if ok else [tag])
+
+    # (a) kernel 1 alone at the scoring forward's shape
+    gen = torch.Generator().manual_seed(seed + 30)
+    xz, w = mamba_inputs(lambda *sh, scale=1.0: (torch.randn(*sh, generator=gen) * scale).to(dev),
+                         dev, B, D, R, L, N, W)
+    call = lambda: mamba_fused_scan(xz, *w)  # noqa: E731
+    got = call()
+    torch.cuda.synchronize()
+    want = mamba_fused_scan_ref(xz, *w)
+    err, rel, ok = compare(got, want, f32)
+    del got, want
+    ms, kms = cuda_ms(call, reps=10), kernel_device_ms(call, FWD_KERNELS)
+    plain_ms = cuda_ms(lambda: mamba_fused_scan_ref(xz, *w), reps=1)
+    bms, by = bound(*mamba_work(B, D, L, N, R, W, 4, False))
+    kernel = dict(B=B, D=D, R=R, N=N, W=W, L=L, dtype="float32", max_abs_err=err, rel_err=rel,
+                  tol=TOL[f32], ms=ms, kernel_ms=kms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by, blocks_per_sm=fwd_blocks_per_sm(D, R, N, f32))
+    report("mamba_fused_scan", ok, **kernel, card=smi())
+    del xz, w
+
+    # (b) the depth-2 full-width model, card against CPU
+    small = dict(cfg, n_layer=2)
+    cpu_lm = give_lm(small, device="cpu", generator=torch.Generator().manual_seed(seed))
+    gpu_lm = copy.deepcopy(cpu_lm).to(dev)
+    rng = np.random.default_rng(seed + 31)
+    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (1, 256)))
+    with torch.inference_mode():
+        got = gpu_lm(ids.to(dev))
+        want = cpu_lm(ids)
+    err, rel = rel_err(got.cpu(), want)
+    report("depth-2 card vs cpu", bool(torch.isfinite(got).all()) and rel <= LM_CPU_TOL,
+           shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=LM_CPU_TOL)
+    del cpu_lm, gpu_lm, got, want
+
+    # (c) scoring: the 24-layer forward at B x L, counted from zero
+    t0 = time.perf_counter()
+    lm = give_lm(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    t_build = time.perf_counter() - t0
+    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (B, L))).to(dev)
+    per_fwd = lm.kernel_launches_per_forward()
+    with torch.inference_mode():
+        lm(ids)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mamba_fused_scan.launches = selective_scan_chunked.launches = 0
+        logits = lm(ids)
+        torch.cuda.synchronize()
+        launches = {"mamba_fused_scan": mamba_fused_scan.launches,
+                    "selective_scan": selective_scan_chunked.launches}
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lm(ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ops = call_device_ops(lambda: lm(ids), reps=2)
+        profile_step("lm scoring forward", lambda: lm(ids))
+        mambas = [m for m in lm.modules() if isinstance(m, Mamba)]
+        for m in mambas:
+            m.scan_impl = "pallas"
+        mamba_fused_scan.launches = selective_scan_chunked.launches = 0
+        t0 = time.perf_counter()
+        logits_b = lm(ids)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        launches_b = {"mamba_fused_scan": mamba_fused_scan.launches,
+                      "selective_scan": selective_scan_chunked.launches}
+        for m in mambas:
+            m.scan_impl = None
+    wall = sum(times) / len(times)
+    err_b, rel_b = rel_err(logits_b, logits)
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits_b).all())
+    n_layer = cfg["n_layer"]
+    report("scoring", finite and launches == {"mamba_fused_scan": n_layer, "selective_scan": 0}
+           and per_fwd == {"mamba_fused_scan": n_layer},
+           batch=B, tokens=L, logits=list(logits.shape), launches=launches, expected=per_fwd,
+           tokens_per_s=B * L / wall, wall_ms=wall * 1e3, device_ms=ops["device_ms"],
+           busy_share=ops["device_ms"] / (wall * 1e3), device_launches=ops["launches"],
+           max_memory_allocated_bytes=peak, build_s=t_build, card=smi())
+    report("scoring route b", finite and rel_b <= MM_ROUTE_LOGITS_TOL
+           and launches_b == {"mamba_fused_scan": 0, "selective_scan": n_layer},
+           launches=launches_b, logits_max_abs_err=err_b, logits_rel_err=rel_b,
+           logits_tol=MM_ROUTE_LOGITS_TOL, wall_ms=t_b * 1e3)
+    del logits, logits_b
+
+    # (d) both decoders, greedy, sampled and teacher-forced
+    decoders = {"generate": generate, "generate_scan": generate_scan}
+    for bsz in LM_BATCHES:
+        prompt = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (bsz, LM_PROMPT))).to(dev)
+        rates, greedy, sampled, step_err = {}, {}, {}, {}
+        for name, dec in decoders.items():
+            dec(lm, prompt[:, :2], 2)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            greedy[name] = dec(lm, prompt, LM_NEW)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            rates[name] = dict(tokens_per_s=bsz * LM_NEW / t, seconds=t,
+                               ms_per_token_step=t * 1e3 / (LM_PROMPT + LM_NEW))
+            sampled[name] = dec(lm, prompt, LM_NEW, **LM_SAMPLING,
+                                generator=torch.Generator(device=dev).manual_seed(seed + 33))
+        # the device operations of one eager token step: what a replay runs
+        conv, ssm = _caches(lm, bsz, dev)
+        with torch.no_grad():
+            step_ops = call_device_ops(lambda: token_step(lm, prompt[:, 0], conv, ssm))
+        teacher = greedy["generate"]
+        with torch.inference_mode():
+            want = lm(teacher)
+        top = want.abs().max().item()
+        for name, dec in decoders.items():
+            tokens, lg = dec(lm, prompt, LM_NEW, teacher_outputs=teacher, return_logits=True)
+            step_err[name] = (lg - want).abs().max().item() / top
+            step_err[name + " tokens"] = torch.equal(tokens, teacher)
+        same_greedy = torch.equal(greedy["generate"], greedy["generate_scan"])
+        same_sampled = torch.equal(sampled["generate"], sampled["generate_scan"])
+        left_greedy = (sampled["generate"] != teacher).float().mean().item()
+        report(f"decode batch {bsz}", same_greedy and same_sampled and left_greedy > 0
+               and all(step_err[f"{n} tokens"] and step_err[n] <= LM_DECODE_TOL
+                       for n in decoders),
+               prompt=LM_PROMPT, new_tokens=LM_NEW, rates=rates,
+               token_step=dict(launches=step_ops["launches"], device_ms=step_ops["device_ms"]),
+               greedy_equal=same_greedy,
+               sampled_equal=same_sampled, sampling=LM_SAMPLING,
+               sampled_share_off_greedy=left_greedy,
+               teacher_forced_rel_err=step_err, tol=LM_DECODE_TOL, card=smi())
+    if failed:
+        raise SystemExit(f"phase10 FAILED: {failed}")
+    return {"kernel": kernel, "launches": launches, "route_b_launches": launches_b}
+
+
 # kernel-name fragments -> the layer that launched the kernel
 _KERNEL_GROUPS = (
     ("mamba_fused_scan", FWD_KERNELS),
@@ -2168,7 +2509,10 @@ def main() -> None:
                                                     check=True)
     print(f"phase8 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     cli = phase9_cli(args.seed)
+    phase9_stream_waits(args.seed)
     print(f"phase9 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    lm = phase10_lm(args.seed)
+    print(f"phase10 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -2183,6 +2527,10 @@ def main() -> None:
         ("val", ("mamba_fused_scan", "tap_conv")),
         ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd", "tap_conv", "tap_conv_bwd")))
         for name in names if cli[path][name] == 0]
+    unlaunched += [f"{name} (the LM's scoring forward)" for name in ("mamba_fused_scan",)
+                   if lm["launches"][name] == 0]
+    unlaunched += [f"{name} (the LM's route-b forward)" for name in ("selective_scan",)
+                   if lm["route_b_launches"][name] == 0]
     if unlaunched:
         raise SystemExit(f"chip_smoke: the main paths launched no {unlaunched}")
 
@@ -2228,7 +2576,9 @@ def main() -> None:
     print(json.dumps({"kernels": [
         summary("mamba_fused_scan", "mm_unet_tpu_torch/csrc/mamba_fused_fwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:240", mm, **step_sums(fwd_steps),
-                **um_entry("mamba_fused_scan", um_fwd)),
+                **um_entry("mamba_fused_scan", um_fwd),
+                lm=dict(lm["kernel"], launches_per_scoring_forward=lm["launches"][
+                    "mamba_fused_scan"])),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps),
                 **um_entry("mamba_fused_scan_bwd", um_bwd)),
@@ -2243,7 +2593,9 @@ def main() -> None:
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128",
-                **step_sums(scan_fwd_steps, scan_keys)),
+                **step_sums(scan_fwd_steps, scan_keys),
+                lm_route_b={"launches_per_scoring_forward": lm["route_b_launches"][
+                    "selective_scan"]}),
         summary("selective_scan_bwd", "mm_unet_tpu_torch/csrc/selective_scan_bwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:278", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:169",

@@ -1,7 +1,12 @@
 """Validation loop (counterpart of `train.py:87-116::val_one_epoch`):
 sliding-window logits through the predictor, the loss on the logits, and
 the numpy metrics (`train/metrics.py`) on the prediction thresholded at
-sigmoid > 0.5."""
+sigmoid > 0.5.
+
+On the card one batch stays in flight, as in `train/loop.py`: each batch is
+staged through pinned host memory (`stage`), and its loss, prediction and
+labels are read back through `HostCopy` after the next batch is issued, so
+the host waits on that copy's event alone."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from mm_unet_tpu_torch.train.loop import HostCopy, stage
 from mm_unet_tpu_torch.train.predictor import make_predictor
 
 
@@ -31,21 +37,32 @@ def val_one_epoch(model: nn.Module, loss_fn: Callable, inferer: Callable,
     predictor = make_predictor(model)
     n_batches = len(val_loader) if hasattr(val_loader, "__len__") else "?"
     losses = []
-    for i, batch in enumerate(val_loader):
-        images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
-        labels = torch.as_tensor(batch["label"], dtype=torch.float32, device=device)
-        logits = inferer(images, predictor)
-        total, _ = loss_fn(logits, labels)
-        losses.append(float(total))
-        preds = (torch.sigmoid(logits) > 0.5).float().cpu().numpy()
-        labels_np = labels.cpu().numpy()
+    pending = None  # (batch index, HostCopy) of the batch before
+
+    def flush(entry):
+        nonlocal step
+        i, copy = entry
+        host = copy.get()
+        losses.append(float(host["loss"]))
         for m in metrics.values():
-            m(y_pred=preds, y=labels_np)
+            m(y_pred=host["preds"], y=host["labels"])
         print(f"Epoch [{epoch + 1}/{num_epochs}] Validation [{i + 1}/{n_batches}] "
               f"Loss: {losses[-1]:1.5f}", flush=True)
         if tracker is not None:
             tracker.log({"Val/total_loss": losses[-1]}, step=step)
         step += 1
+
+    for i, batch in enumerate(val_loader):
+        images, labels = stage(batch["image"], device), stage(batch["label"], device)
+        logits = inferer(images, predictor)
+        total, _ = loss_fn(logits, labels)
+        preds = (torch.sigmoid(logits) > 0.5).float()
+        entry = (i, HostCopy({"loss": total, "preds": preds, "labels": labels}))
+        if pending is not None:
+            flush(pending)
+        pending = entry
+    if pending is not None:
+        flush(pending)
     metric = {}
     for name, m in metrics.items():
         agg = m.aggregate()

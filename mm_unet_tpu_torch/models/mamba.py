@@ -236,3 +236,62 @@ class Mamba(nn.Module):
         if bt == "v3":
             return out, o_1, o_2, o_3
         return out
+
+
+class RMSNorm(nn.Module):
+    """x / sqrt(mean(x²) + eps) * weight over the last axis (flax's
+    `nn.RMSNorm`, the reference's RMSNorm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * self.weight
+
+
+class Block(nn.Module):
+    """Prenorm residual wrapper, Add -> Norm -> Mixer (counterpart of
+    `mm_unet_tpu/models/mamba.py::Block`, the reference's
+    `mamba_simple.py:453-506`). Returns (hidden_states, residual).
+
+    `rms_norm` picks RMSNorm over LayerNorm, both at `norm_epsilon`; with
+    `fused_add_norm` the add and the norm run in f32 before the cast back
+    (the observable effect of the reference's fused Triton add+norm);
+    `residual_in_fp32` keeps the residual f32. The norm always computes in
+    f32, as flax's does on a narrower input. The mixer is `Mamba` with
+    `mamba_kwargs` (bimamba_type "none" unless they say otherwise). Names
+    follow the reference: `norm.weight`, `norm.bias`, `mixer.*`."""
+
+    def __init__(self, dim: int, norm_epsilon: float = 1e-5, residual_in_fp32: bool = False,
+                 rms_norm: bool = False, fused_add_norm: bool = False,
+                 mamba_kwargs: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.residual_in_fp32, self.fused_add_norm = residual_in_fp32, fused_add_norm
+        kw = {"bimamba_type": "none", **(mamba_kwargs or {})}
+        self.mixer = Mamba(d_model=dim, generator=generator, **kw)
+        self.norm = RMSNorm(dim, norm_epsilon) if rms_norm else nn.LayerNorm(dim, norm_epsilon)
+
+    def add_norm(self, hidden_states: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the mixer's input, the new residual): the Add and the Norm."""
+        dtype = hidden_states.dtype
+        if self.fused_add_norm:
+            hs32 = hidden_states.float()
+            residual = hs32 + residual if residual is not None else hs32
+            if not self.residual_in_fp32:
+                residual = residual.to(dtype)
+        else:
+            residual = hidden_states + residual if residual is not None else hidden_states
+            if self.residual_in_fp32:
+                residual = residual.float()
+        return self.norm(residual.float()).to(dtype), residual
+
+    def forward(self, hidden_states: torch.Tensor, residual: Optional[torch.Tensor] = None):
+        h, residual = self.add_norm(hidden_states, residual)
+        h = self.mixer(h)
+        if isinstance(h, tuple):
+            h = h[0]
+        return h, residual

@@ -1,5 +1,6 @@
-"""Causal depthwise 1-D convolution, plain PyTorch (counterpart of
-`mm_unet_tpu/ops/causal_conv1d.py::causal_conv1d`): f32 accumulation, the
+"""Causal depthwise 1-D convolution and its single-token decode step, plain
+PyTorch (counterparts of `mm_unet_tpu/ops/causal_conv1d.py::causal_conv1d`
+and `::causal_conv1d_update`, which are plain JAX): f32 accumulation, the
 result cast back to the input dtype."""
 
 from __future__ import annotations
@@ -40,3 +41,26 @@ def causal_conv1d(
     if activation is not None:
         out = F.silu(out)
     return out.to(x.dtype)
+
+
+def causal_conv1d_update(
+    x: torch.Tensor,
+    conv_state: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-token decode step (counterpart of
+    `mm_unet_tpu/ops/causal_conv1d.py::causal_conv1d_update`): x (B, D) the
+    current token, conv_state (B, D, W) the last W inputs, weight (D, W),
+    bias (D,). Returns (out (B, D) in x's dtype, new_state (B, D, W)): the
+    state rolled left by one with x written last, and the conv over it."""
+    if activation not in (None, "silu", "swish"):
+        raise NotImplementedError(f"activation {activation}")
+    state = torch.cat([conv_state[..., 1:], x[..., None].to(conv_state.dtype)], dim=-1)
+    out = (state.float() * weight.float()[None]).sum(-1)
+    if bias is not None:
+        out = out + bias.float()[None]
+    if activation is not None:
+        out = F.silu(out)
+    return out.to(x.dtype), state

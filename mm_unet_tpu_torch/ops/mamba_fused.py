@@ -60,13 +60,24 @@ def mamba_fused_scan_ref(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip,
 def _chunk_len(D: int, E: int) -> int:
     """Tokens per block: the largest power of two in [16, 256] whose f32
     shared-memory tile (u and dt for D channels, E x_dbl rows) fits 96 KB
-    for wide Mambas (two blocks per SM) or 24 KB for narrow ones (many small
-    blocks per SM, to hide the scan's latency); a multiple of `_SUB_CHUNK`."""
+    for wide Mambas or 24 KB for narrow ones (many small blocks per SM, to
+    hide the scan's latency); a multiple of `_SUB_CHUNK`. It stops at 16,
+    so a wide enough Mamba's tile, (2 D + E) (T + 1) 4 bytes in the kernels
+    (`smem_for`), passes the budget: D 128 keeps two resident blocks per SM,
+    the Mamba LM's D 1536 (E 80) takes 214,336 B at T 16 and one block per
+    SM, and past the card's 227 KB opt-in (D > 1,669 at E 80) the launch is
+    refused and the wrapper raises with the shape."""
     budget = (96 if D > 32 else 24) * 1024
     t = 256
     while t > 16 and (2 * D + E) * t * 4 > budget:
         t //= 2
     return t
+
+
+def _tile_bytes(D: int, E: int, T: int) -> int:
+    """The forward's shared-memory tile: rows of T + 1 floats for u and dt
+    of D channels and E x_dbl rows (`smem_for`, csrc/mamba_fused_fwd.cu)."""
+    return (2 * D + E) * (T + 1) * 4
 
 
 def _kernel_operands(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip):
@@ -107,7 +118,8 @@ def _launch_fwd(xz, w, reverse):
         state.data_ptr(), dtsum.data_ptr(), Bsz, G, D, L, N, R, W, T,
         int(reverse), int(sd == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "mamba_fused_fwd")
+    _build.check(err, f"mamba_fused_fwd at B {Bsz}, G {G}, D {D}, L {L}, N {N}, R {R}, W {W}, "
+                      f"T {T} ({_tile_bytes(D, R + 2 * N, T)} B of shared memory per block)")
     mamba_fused_scan.launches += 1
     return out, state, dtsum
 
@@ -140,7 +152,7 @@ def _launch_bwd(dout, xz, w, state, dtsum, reverse):
         _CONV_TILE, int(reverse), int(sd == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "mamba_fused_bwd")
+    _build.check(err, f"mamba_fused_bwd at B {Bsz}, G {G}, D {D}, L {L}, N {N}, R {R}, W {W}")
     mamba_fused_scan.bwd_launches += 1
     dconv = p_dconv.sum((0, 2))  # the host sums over batch and blocks, as core_bwd
     return (dxz, dconv[..., :W], dconv[..., W], p_dxp.sum((0, 2)), p_ddtw.sum((0, 2)),

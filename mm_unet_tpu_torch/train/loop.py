@@ -1,10 +1,17 @@
 """The training epoch (counterpart of `train.py:32-84::train_one_epoch`).
 
 Each batch goes through `train_step`; the metric statistics feed the numpy
-metrics' `update_stats` (`train/metrics.py`). The host reads a step's loss and statistics
-only after the next step has been issued, so it never waits for the card
-between steps. The running step is the train state's `step`. The mesh and
-batch sharding of the JAX loop are not ported (ROADMAP.md).
+metrics' `update_stats` (`train/metrics.py`). The running step is the train
+state's `step`. The mesh and batch sharding of the JAX loop are not ported
+(ROADMAP.md).
+
+On the card the loop keeps one step in flight, as the JAX loop does
+(`train.py:40-42`). Each batch is staged in pinned host memory and copied
+with `non_blocking=True` (`stage`). A step's scalars and metric statistics
+are copied into pinned host buffers, non-blocking, behind that step, and an
+event is recorded after the copy (`HostCopy`). The host reads them only
+after it has issued the next step, and then waits on that event alone, so
+nothing waits on the whole stream until the epoch's closing synchronise.
 """
 
 from __future__ import annotations
@@ -18,8 +25,41 @@ import torch
 from mm_unet_tpu_torch.train.trainer import TrainState, train_step
 
 
-def _to_host(stats: dict) -> dict:
-    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in stats.items()}
+def stage(x, device: torch.device) -> torch.Tensor:
+    """A batch array as f32 on `device`: on the card through pinned host
+    memory with a non-blocking copy (the caching host allocator keeps the
+    pinned block until the copy is done)."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    if device.type != "cuda" or t.is_cuda:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """{name: tensor or value} read back to the host without draining the
+    stream: card tensors are copied into pinned host buffers, non-blocking,
+    behind the work queued so far, with an event recorded after the copies;
+    `get()` waits on that event alone and returns the host values (numpy
+    arrays for tensors; the values as they are otherwise)."""
+
+    def __init__(self, values: Mapping):
+        self.values, self.event = {}, None
+        for k, v in values.items():
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+                if v.is_cuda:
+                    host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    host.copy_(v, non_blocking=True)
+                    self.event, v = torch.cuda.Event(), host
+            self.values[k] = v
+        if self.event is not None:
+            self.event.record()
+
+    def get(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in self.values.items()}
 
 
 def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable[Mapping],
@@ -42,25 +82,25 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
 
     def flush(entry):
         i, step, scalars, stats = entry
+        scalars, stats = scalars.get(), stats.get()
         print(f"Epoch [{epoch + 1}/{num_epochs}] Training [{i + 1}/{n_batches}] "
               f"Loss: {float(scalars['total_loss']):1.5f}", flush=True)
         if tracker is not None:
             tracker.log({f"Train/{k}": v.item() for k, v in scalars.items()}, step=step)
-        host = _to_host(stats)
         for m in metrics.values():
-            m.update_stats(host)
+            m.update_stats(stats)
 
     for i, batch in enumerate(train_loader):
         if stop is not None and stop.requested:
             break  # preemption: stop at a step boundary; the caller checkpoints
-        images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
-        labels = torch.as_tensor(batch["label"], dtype=torch.float32, device=device)
+        images, labels = stage(batch["image"], device), stage(batch["label"], device)
         step = state.step
         scalars, stats = train_step(state, images, labels, loss_fn)
         n_img += images.shape[0]
+        entry = (i, step, HostCopy(scalars), HostCopy(stats))
         if pending is not None:
             flush(pending)
-        pending = (i, step, scalars, stats)
+        pending = entry
     if pending is not None:
         flush(pending)
     if device.type == "cuda":

@@ -6,11 +6,13 @@ variable path to the torch reference's key and a layout kind, in the
 direction torch -> flax. `jax_to_torch_state_dict` inverts each kind, so the
 same tables load JAX weights into this package's modules, which carry the
 torch reference's names. The caller passes the pair list; this module
-imports neither jax nor the JAX package.
+imports neither jax nor the JAX package. The JAX package has no table for
+the Mamba LM: `lm_pairs` is the port's own, in the same form.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Iterable, Mapping, Optional
 
@@ -126,3 +128,43 @@ def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
             diff = sorted(set(want.items()) ^ set(got.items()))
             raise ValueError(f"state_dict mismatch (key, shape) first of {len(diff)}: {diff[:5]}")
     return sd
+
+
+def mamba_pairs(fpath: tuple, tkey: str, d_model: int, dirs=("",)) -> list:
+    """One Mamba's entries, in the form of the JAX package's
+    `torch_convert.mamba_pairs`: the flax params carry the torch names, and
+    `dt_proj*_weight` is stored shifted by +dt_rank**-0.5 (the function kind,
+    which `_invert` undoes)."""
+    shift = math.ceil(d_model / 16) ** -0.5
+
+    def dt_shift(w):
+        return np.asarray(w) + shift
+
+    p = [((*fpath, "in_proj_weight"), f"{tkey}.in_proj.weight", "raw"),
+         ((*fpath, "out_proj_weight"), f"{tkey}.out_proj.weight", "raw")]
+    for s in dirs:
+        p += [((*fpath, f"conv1d{s}_weight"), f"{tkey}.conv1d{s}.weight", "conv1d_dw"),
+              ((*fpath, f"conv1d{s}_bias"), f"{tkey}.conv1d{s}.bias", "raw"),
+              ((*fpath, f"x_proj{s}_weight"), f"{tkey}.x_proj{s}.weight", "raw"),
+              ((*fpath, f"dt_proj{s}_weight"), f"{tkey}.dt_proj{s}.weight", dt_shift),
+              ((*fpath, f"dt_proj{s}_bias"), f"{tkey}.dt_proj{s}.bias", "raw"),
+              ((*fpath, f"A{s}_log"), f"{tkey}.A{s}_log", "raw"),
+              ((*fpath, f"D{s}"), f"{tkey}.D{s}", "raw")]
+    return p
+
+
+def lm_pairs(n_layer: int, d_model: int, rms_norm: bool) -> list:
+    """The JAX `MambaLMHeadModel` <- the port's (`models/lm.py`): the
+    embedding, each Block's norm (`LayerNorm_0`, or a bias-less `RMSNorm_0`)
+    and one-direction Mamba, and `norm_f`. The head is tied to the
+    embedding and has no entry of its own."""
+    def norm(fpath, tkey):
+        return ([((*fpath, "scale"), f"{tkey}.weight", "raw")]
+                + ([] if rms_norm else [((*fpath, "bias"), f"{tkey}.bias", "raw")]))
+
+    p = [(("backbone", "embedding", "embedding"), "backbone.embedding.weight", "raw")]
+    for i in range(n_layer):
+        fpath, tkey = ("backbone", f"layers_{i}"), f"backbone.layers.{i}"
+        p += norm((*fpath, "RMSNorm_0" if rms_norm else "LayerNorm_0"), f"{tkey}.norm")
+        p += mamba_pairs((*fpath, "Mamba_0"), f"{tkey}.mixer", d_model)
+    return p + norm(("backbone", "norm_f"), "backbone.norm_f")

@@ -351,3 +351,104 @@ def test_dkdualnet_routes_agree_on_the_card():
     for k, g in res[None][1].items():
         err = (res["pallas"][1][k] - g).abs().max().item()
         assert err <= 1e-3 * (1.0 + g.abs().max().item()), (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_kernel_at_the_lm_width(dtype):
+    """Kernel 1 at the Mamba LM's d_inner (mamba-130m: D 1536, dt_rank 48),
+    where the tile takes 214,336 B of shared memory at 16-token chunks;
+    300 tokens end inside a chunk."""
+    dev = _device()
+    rng = np.random.default_rng(1536)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    D, R, N, W, L = 1536, 48, 16, 4, 300
+    xz = torch.cat([f(2, 1, D, L) * 0.5, f(2, 1, D, L)], dim=2).to(dtype)
+    args = (f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
+            f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5),
+            torch.ones(1, D, device=dev))
+    _close(mamba_fused_scan(xz, *args), mamba_fused_scan_ref(xz, *args), dtype)
+
+
+@pytest.mark.cuda
+def test_mamba_fused_refuses_tiles_past_the_shared_memory_opt_in():
+    """D 2048 (mamba-370m's d_inner) needs 283,968 B per block at the
+    shortest chunk, past the card's 227 KB: the launch is refused and the
+    wrapper raises with the shape; there is no fallback."""
+    dev = _device()
+    D, R, N, W, L = 2048, 64, 16, 4, 64
+    xz = torch.zeros(1, 1, 2 * D, L, device=dev)
+    args = (torch.zeros(1, D, W, device=dev), None, torch.zeros(1, R + 2 * N, D, device=dev),
+            torch.zeros(1, D, R, device=dev), torch.zeros(1, D, device=dev),
+            -torch.ones(1, D, N, device=dev), torch.ones(1, D, device=dev))
+    with pytest.raises(RuntimeError, match="D 2048"):
+        mamba_fused_scan(xz, *args)
+
+
+@pytest.mark.cuda
+def test_graph_decoder_matches_the_eager_one():
+    """A small Mamba LM on the card: `generate_scan` (one CUDA-graph replay
+    per token) against `generate` (eager), greedy and sampled tokens equal,
+    and the teacher-forced step logits of both against the forward's."""
+    from mm_unet_tpu_torch.models.lm import MambaLMHeadModel, generate, generate_scan
+
+    dev = _device()
+    lm = MambaLMHeadModel(64, 2, 50, rms_norm=True, fused_add_norm=True,
+                          generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, 50, (3, 5))).to(dev)
+    greedy = [dec(lm, prompt, 9) for dec in (generate, generate_scan)]
+    assert torch.equal(greedy[0], greedy[1])
+    sampled = [dec(lm, prompt, 9, top_k=10, top_p=0.9,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+               for dec in (generate, generate_scan)]
+    assert torch.equal(sampled[0], sampled[1])
+    with torch.no_grad():
+        want = lm(greedy[0])
+    for dec in (generate, generate_scan):
+        tokens, logits = dec(lm, prompt, 9, teacher_outputs=greedy[0], return_logits=True)
+        assert torch.equal(tokens, greedy[0])
+        err = (logits - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_loops_never_wait_on_the_whole_stream():
+    """Two `train_one_epoch` steps and two `val_one_epoch` batches of a
+    small MM_Net under `torch.cuda.set_sync_debug_mode("error")`: a blocking
+    copy, `.item()` of a card tensor or a stream synchronise would raise.
+    The training epoch's closing `torch.cuda.synchronize` is let through
+    and counted: it is the only one."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.evaluate import val_one_epoch
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
+    from mm_unet_tpu_torch.train.loop import train_one_epoch
+    from mm_unet_tpu_torch.train.metrics import build_metrics
+    from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn
+
+    dev = _device()
+    model = give_model("MM_Net", device=dev, generator=torch.Generator().manual_seed(0),
+                       depths=(1, 1, 1, 1), num_slices_list=(4, 4, 4, 4))
+    state = create_train_state(model, {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2)})
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    batches = [synthetic_batch(2, 64, i) for i in range(4)]
+    real, calls = torch.cuda.synchronize, []
+
+    def counted(device=None):
+        calls.append(device)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real(device)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_one_epoch(state, loss_fn, batches[:2], build_metrics())
+        val_one_epoch(model, loss_fn, SlidingWindowInferer((64, 64)), batches[2:],
+                      build_metrics())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize = real
+    assert len(calls) == 1 and state.step == 2
