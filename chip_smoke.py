@@ -512,51 +512,62 @@ class RowPins:
             m.__dict__.pop("_sample_conv", None)
 
 
-class TapCalls:
-    """Every tap-conv call a model makes while this context is open, where
-    the morph-0 sample-conv makes it (`layers.row_sample_conv`): the call's
-    inputs and output, the gradient of its output, and the gradient the call
-    gave each input (tensor hooks). `check(tag)` holds each call to the plain
-    version at those very inputs: the output (TOL) and each input's gradient
-    against autograd of `tap_conv_ref` with the same output gradient
-    (BWD_TOL), per element as `rel_err`; the kernels at the data and shapes
-    the model gives them, each call on its own, so that a single wrong call
-    fails however little it moves the model's gradients. dbias is held to
-    the size of its summands (its largest |dbias - plain| over the largest
-    sum of |dout| over the pixels): the GroupNorm after every tap-conv
-    makes dout sum to zero over each group, so a model's dbias cancels to
-    where summation order moves it by a third (0.37, f32, UM_Net), while
-    on phase 1's random data it is held per element."""
+class KernelCalls:
+    """Every call of `module.attr` (a kernel wrapper, where a model's module
+    reaches it) while this context is open: the call's arguments and
+    output, the gradient of its output, and the gradient the call gave each
+    tensor argument (tensor hooks). Subclasses hold each call to the plain
+    version at those very inputs (`check`)."""
 
-    def __init__(self):
-        from mm_unet_tpu_torch.models import layers
-
-        self.layers, self.calls, self.handles = layers, [], []
+    def __init__(self, module, attr: str):
+        self.module, self.attr, self.calls, self.handles = module, attr, [], []
 
     def __enter__(self):
-        fn = self.plain = self.layers.tap_conv
+        fn = self.plain = getattr(self.module, self.attr)
 
-        def watched(feat, y, kernel, bias, shifts):
-            ins = (feat, y, kernel, bias)
-            out = fn(*ins, shifts)
-            rec = {"inputs": [t.detach() for t in ins], "shifts": list(shifts),
-                   "out": out.detach(), "grads": [None] * 4, "dout": None}
+        def watched(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rec = {"args": [a.detach() if isinstance(a, torch.Tensor) else a for a in args],
+                   "kwargs": kwargs, "out": out.detach(), "grads": [None] * len(args),
+                   "wants_grad": [isinstance(a, torch.Tensor) and a.requires_grad for a in args],
+                   "dout": None}
             if out.requires_grad:
                 out.register_hook(lambda g: rec.__setitem__("dout", g.detach()))
-                for i, t in enumerate(ins):
-                    if t.requires_grad:
-                        self.handles.append(t.register_hook(
+                for i, a in enumerate(args):
+                    if rec["wants_grad"][i]:
+                        self.handles.append(a.register_hook(
                             lambda g, i=i: rec["grads"].__setitem__(i, g.detach())))
             self.calls.append(rec)
             return out
 
-        self.layers.tap_conv = watched
+        setattr(self.module, self.attr, watched)
         return self
 
     def __exit__(self, *exc):
-        self.layers.tap_conv = self.plain
+        setattr(self.module, self.attr, self.plain)
         for h in self.handles:
             h.remove()
+
+
+class TapCalls(KernelCalls):
+    """Every tap-conv call a model makes while this context is open, where
+    the morph-0 sample-conv makes it (`layers.row_sample_conv`).
+    `check(tag)` holds each call to the plain version at its own inputs: the
+    output (TOL) and each input's gradient against autograd of
+    `tap_conv_ref` with the same output gradient (BWD_TOL), per element as
+    `rel_err`; the kernels at the data and shapes the model gives them, each
+    call on its own, so that a single wrong call fails however little it
+    moves the model's gradients. dbias is held to the size of its summands
+    (its largest |dbias - plain| over the largest sum of |dout| over the
+    pixels): the GroupNorm after every tap-conv makes dout sum to zero over
+    each group, so a model's dbias cancels to where summation order moves it
+    by a third (0.37, f32, UM_Net), while on phase 1's random data it is
+    held per element."""
+
+    def __init__(self):
+        from mm_unet_tpu_torch.models import layers
+
+        super().__init__(layers, "tap_conv")
 
     def check(self, tag: str) -> bool:
         """Prints one line for all calls (the worst forward and backward
@@ -567,19 +578,18 @@ class TapCalls:
         names = ["feat", "y", "kernel", "bias"]
         worst_f, worst_b, bad = (-1.0, None), (-1.0, None), 0
         for rec in self.calls:
-            feat, y, kernel, bias = rec["inputs"]
+            feat, y, kernel, bias, shifts = rec["args"]
             dtype = feat.dtype
             shape = dict(B=feat.shape[0], H=feat.shape[1], W=feat.shape[2], C=feat.shape[3],
                          F=kernel.shape[-1], K=kernel.shape[0], dtype=str(dtype)[6:])
             with torch.no_grad():
-                _, rel_f = rel_err(rec["out"], tap_conv_ref(*rec["inputs"], rec["shifts"]))
+                _, rel_f = rel_err(rec["out"], tap_conv_ref(*rec["args"]))
             ok = rel_f <= TOL[dtype]
             worst_f = max(worst_f, (rel_f, shape), key=lambda w: w[0])
-            if rec["dout"] is None or any(g is None for g in rec["grads"]):
+            if rec["dout"] is None or any(g is None for g in rec["grads"][:4]):
                 bad += 1
                 continue
-            want = grads_of(lambda *a: tap_conv_ref(*a, rec["shifts"]), rec["inputs"],
-                            rec["dout"])[2]
+            want = grads_of(lambda *a: tap_conv_ref(*a, shifts), rec["args"][:4], rec["dout"])[2]
             errs, _ = compare_grads(rec["grads"][:3], want[:3], names[:3], BWD_TOL[dtype])
             # dbias, a sum of dout over the pixels, against the size of its
             # summands: behind a GroupNorm the sum cancels nearly to zero
@@ -598,50 +608,23 @@ class TapCalls:
         return ok
 
 
-class FusedCalls:
+class FusedCalls(KernelCalls):
     """Every fused-scan call (kernels 1/2) a model makes while this context
-    is open, where Mamba makes it (`models.mamba.mamba_fused_scan`), recorded
-    as `TapCalls` records the tap-conv's: the inputs, the output, the
-    gradient of the output and the gradient the call gave each input (tensor
-    hooks). `check(tag)` holds each call to `mamba_fused_scan_ref` at those
-    very inputs: the output per element at TOL, and each input's gradient
-    against autograd of the plain version with the same output gradient at
-    BWD_TOL, per element as `rel_err` (the weights' gradients sum over the
-    call's tokens, each element held to its own size, floored at the
-    tensor's rms). One wrong call fails it, however little it moves the
-    model's gradients."""
+    is open, where Mamba makes it (`models.mamba.mamba_fused_scan`).
+    `check(tag)` holds each call to `mamba_fused_scan_ref` at its own
+    inputs: the output per element at TOL, and each input's gradient against
+    autograd of the plain version with the same output gradient at BWD_TOL,
+    per element as `rel_err` (the weights' gradients sum over the call's
+    tokens, each element held to its own size, floored at the tensor's
+    rms). One wrong call fails it, however little it moves the model's
+    gradients."""
 
     NAMES = ("xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D")
 
     def __init__(self):
         from mm_unet_tpu_torch.models import mamba
 
-        self.mamba, self.calls, self.handles = mamba, [], []
-
-    def __enter__(self):
-        fn = self.plain = self.mamba.mamba_fused_scan
-
-        def watched(*ins, reverse=False):
-            out = fn(*ins, reverse=reverse)
-            rec = {"inputs": [None if t is None else t.detach() for t in ins],
-                   "reverse": reverse, "out": out.detach(), "grads": [None] * len(ins),
-                   "wants_grad": [t is not None and t.requires_grad for t in ins], "dout": None}
-            if out.requires_grad:
-                out.register_hook(lambda g: rec.__setitem__("dout", g.detach()))
-                for i, t in enumerate(ins):
-                    if t is not None and t.requires_grad:
-                        self.handles.append(t.register_hook(
-                            lambda g, i=i: rec["grads"].__setitem__(i, g.detach())))
-            self.calls.append(rec)
-            return out
-
-        self.mamba.mamba_fused_scan = watched
-        return self
-
-    def __exit__(self, *exc):
-        self.mamba.mamba_fused_scan = self.plain
-        for h in self.handles:
-            h.remove()
+        super().__init__(mamba, "mamba_fused_scan")
 
     def check(self, tag: str) -> bool:
         """Prints one line for all calls (the worst forward and backward
@@ -652,13 +635,12 @@ class FusedCalls:
 
         worst_f, worst_b, bad = (-1.0, None), (-1.0, None), 0
         for rec in self.calls:
-            xz, dtype = rec["inputs"][0], rec["inputs"][0].dtype
+            xz, dtype, reverse = rec["args"][0], rec["args"][0].dtype, rec["kwargs"]["reverse"]
             shape = dict(B=xz.shape[0], D=xz.shape[2] // 2, L=xz.shape[3],
-                         R=rec["inputs"][4].shape[2], reverse=rec["reverse"],
-                         dtype=str(dtype)[6:])
-            ref = lambda *a: mamba_fused_scan_ref(*a, reverse=rec["reverse"])  # noqa: E731
+                         R=rec["args"][4].shape[2], reverse=reverse, dtype=str(dtype)[6:])
+            ref = lambda *a: mamba_fused_scan_ref(*a, reverse=reverse)  # noqa: E731
             with torch.no_grad():
-                _, rel_f = rel_err(rec["out"], ref(*rec["inputs"]))
+                _, rel_f = rel_err(rec["out"], ref(*rec["args"]))
             ok = rel_f <= TOL[dtype]
             worst_f = max(worst_f, (rel_f, shape), key=lambda w: w[0])
             live = [i for i, w in enumerate(rec["wants_grad"]) if w]
@@ -666,7 +648,7 @@ class FusedCalls:
                 bad += 1
                 continue
             ins = [None if t is None else t.detach().clone().requires_grad_(i in live)
-                   for i, t in enumerate(rec["inputs"])]
+                   for i, t in enumerate(rec["args"])]
             want = torch.autograd.grad(ref(*ins), [ins[i] for i in live], rec["dout"])
             errs, ok_b = compare_grads([rec["grads"][i] for i in live], want,
                                        [self.NAMES[i] for i in live], BWD_TOL[dtype])

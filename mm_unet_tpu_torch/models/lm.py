@@ -4,7 +4,8 @@ reference's `mixer_seq_simple.py` and `utils/generation.py`).
 - `MixerModel`: the embedding, `n_layer` prenorm `Block`s (each a
   one-direction `Mamba`, which takes the megakernel route, kernel 1, at
   d_state 16) and the final norm `norm_f`; `MambaLMHeadModel` adds the
-  head tied to the embedding, `h @ embedding.weight.T`.
+  head tied to the embedding, `h @ embedding.weight.T`; `give_lm` builds
+  one from a reference config.json (mamba-130m's by default).
 - `mamba_step`: one token through one Block's mixer, with the rolling conv
   and SSM caches (`ops/causal_conv1d.py::causal_conv1d_update`,
   `ops/state_update.py::selective_state_update`).
@@ -40,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mm_unet_tpu_torch.models.mamba import Block, Mamba, RMSNorm, kernel_launches
+from mm_unet_tpu_torch.models.mamba import Block, Mamba, kernel_launches
 from mm_unet_tpu_torch.ops.causal_conv1d import causal_conv1d_update
 from mm_unet_tpu_torch.ops.state_update import selective_state_update
 
@@ -68,7 +69,8 @@ class MixerModel(nn.Module):
             Block(d_model, NORM_EPS, rms_norm=rms_norm, fused_add_norm=fused_add_norm,
                   mamba_kwargs={"d_state": d_state, "bimamba_type": "none"}, generator=g)
             for _ in range(n_layer))
-        self.norm_f = RMSNorm(d_model, NORM_EPS) if rms_norm else nn.LayerNorm(d_model, NORM_EPS)
+        self.norm_f = (nn.RMSNorm(d_model, NORM_EPS) if rms_norm
+                       else nn.LayerNorm(d_model, NORM_EPS))
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         h, residual = self.embedding(input_ids), None
@@ -98,32 +100,25 @@ class MambaLMHeadModel(nn.Module):
         """One fused scan (kernel 1) per Block on the megakernel route."""
         return kernel_launches(self)
 
-    @classmethod
-    def from_config(cls, config: Mapping, device: torch.device | str = "cuda",
-                    generator: Optional[torch.Generator] = None) -> "MambaLMHeadModel":
-        """The model of a reference config.json (`MAMBA_130M`'s keys), its
-        vocabulary padded up to `pad_vocab_size_multiple`, on `device` in
-        eval mode: the card unless the caller asks for the CPU. d_state comes
-        from `ssm_cfg` (16 by default). `residual_in_fp32` changes nothing on
-        the f32 stream and is not a field of the JAX model, so it is not
-        read."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("MambaLMHeadModel: no CUDA device here; the port runs on the card "
-                               "unless the caller asks for the CPU with device='cpu'")
-        multiple = config.get("pad_vocab_size_multiple", 1)
-        vocab = -(-config["vocab_size"] // multiple) * multiple
-        return cls(config["d_model"], config["n_layer"], vocab,
-                   (config.get("ssm_cfg") or {}).get("d_state", 16),
-                   config.get("rms_norm", False), config.get("fused_add_norm", False),
-                   generator).to(device).eval()
-
 
 def give_lm(config: Mapping = MAMBA_130M, device: torch.device | str = "cuda",
             generator: Optional[torch.Generator] = None) -> MambaLMHeadModel:
-    """`MambaLMHeadModel.from_config`: mamba-130m's published widths unless
-    the caller gives another config."""
-    return MambaLMHeadModel.from_config(config, device, generator)
+    """The model of a reference config.json (mamba-130m's, `MAMBA_130M`,
+    unless the caller gives another), its vocabulary padded up to
+    `pad_vocab_size_multiple`, weights drawn from `generator`, on `device` in
+    eval mode: the card unless the caller asks for the CPU. d_state comes
+    from `ssm_cfg` (16 by default). `residual_in_fp32` changes nothing on
+    the f32 stream and is not a field of the JAX model, so it is not read."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("give_lm: no CUDA device here; the port runs on the card unless "
+                           "the caller asks for the CPU with device='cpu'")
+    multiple = config.get("pad_vocab_size_multiple", 1)
+    vocab = -(-config["vocab_size"] // multiple) * multiple
+    return MambaLMHeadModel(config["d_model"], config["n_layer"], vocab,
+                            (config.get("ssm_cfg") or {}).get("d_state", 16),
+                            config.get("rms_norm", False), config.get("fused_add_norm", False),
+                            generator).to(device).eval()
 
 
 def mamba_step(mixer: Mamba, x: torch.Tensor, conv_state: torch.Tensor,

@@ -238,25 +238,13 @@ class Mamba(nn.Module):
         return out
 
 
-class RMSNorm(nn.Module):
-    """x / sqrt(mean(x²) + eps) * weight over the last axis (flax's
-    `nn.RMSNorm`, the reference's RMSNorm)."""
-
-    def __init__(self, dim: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * self.weight
-
-
 class Block(nn.Module):
     """Prenorm residual wrapper, Add -> Norm -> Mixer (counterpart of
     `mm_unet_tpu/models/mamba.py::Block`, the reference's
     `mamba_simple.py:453-506`). Returns (hidden_states, residual).
 
-    `rms_norm` picks RMSNorm over LayerNorm, both at `norm_epsilon`; with
+    `rms_norm` picks RMSNorm (`nn.RMSNorm`, flax's `nn.RMSNorm`) over
+    LayerNorm, both at `norm_epsilon`; with
     `fused_add_norm` the add and the norm run in f32 before the cast back
     (the observable effect of the reference's fused Triton add+norm);
     `residual_in_fp32` keeps the residual f32. The norm always computes in
@@ -272,7 +260,8 @@ class Block(nn.Module):
         self.residual_in_fp32, self.fused_add_norm = residual_in_fp32, fused_add_norm
         kw = {"bimamba_type": "none", **(mamba_kwargs or {})}
         self.mixer = Mamba(d_model=dim, generator=generator, **kw)
-        self.norm = RMSNorm(dim, norm_epsilon) if rms_norm else nn.LayerNorm(dim, norm_epsilon)
+        self.norm = (nn.RMSNorm(dim, norm_epsilon) if rms_norm
+                     else nn.LayerNorm(dim, norm_epsilon))
 
     def add_norm(self, hidden_states: torch.Tensor,
                  residual: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:

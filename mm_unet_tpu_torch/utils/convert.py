@@ -130,27 +130,25 @@ def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
     return sd
 
 
-def mamba_pairs(fpath: tuple, tkey: str, d_model: int, dirs=("",)) -> list:
-    """One Mamba's entries, in the form of the JAX package's
+def mamba_pairs(fpath: tuple, tkey: str, d_model: int) -> list:
+    """A one-direction Mamba's entries, in the form of the JAX package's
     `torch_convert.mamba_pairs`: the flax params carry the torch names, and
-    `dt_proj*_weight` is stored shifted by +dt_rank**-0.5 (the function kind,
+    `dt_proj_weight` is stored shifted by +dt_rank**-0.5 (the function kind,
     which `_invert` undoes)."""
     shift = math.ceil(d_model / 16) ** -0.5
 
     def dt_shift(w):
         return np.asarray(w) + shift
 
-    p = [((*fpath, "in_proj_weight"), f"{tkey}.in_proj.weight", "raw"),
-         ((*fpath, "out_proj_weight"), f"{tkey}.out_proj.weight", "raw")]
-    for s in dirs:
-        p += [((*fpath, f"conv1d{s}_weight"), f"{tkey}.conv1d{s}.weight", "conv1d_dw"),
-              ((*fpath, f"conv1d{s}_bias"), f"{tkey}.conv1d{s}.bias", "raw"),
-              ((*fpath, f"x_proj{s}_weight"), f"{tkey}.x_proj{s}.weight", "raw"),
-              ((*fpath, f"dt_proj{s}_weight"), f"{tkey}.dt_proj{s}.weight", dt_shift),
-              ((*fpath, f"dt_proj{s}_bias"), f"{tkey}.dt_proj{s}.bias", "raw"),
-              ((*fpath, f"A{s}_log"), f"{tkey}.A{s}_log", "raw"),
-              ((*fpath, f"D{s}"), f"{tkey}.D{s}", "raw")]
-    return p
+    return [((*fpath, "in_proj_weight"), f"{tkey}.in_proj.weight", "raw"),
+            ((*fpath, "out_proj_weight"), f"{tkey}.out_proj.weight", "raw"),
+            ((*fpath, "conv1d_weight"), f"{tkey}.conv1d.weight", "conv1d_dw"),
+            ((*fpath, "conv1d_bias"), f"{tkey}.conv1d.bias", "raw"),
+            ((*fpath, "x_proj_weight"), f"{tkey}.x_proj.weight", "raw"),
+            ((*fpath, "dt_proj_weight"), f"{tkey}.dt_proj.weight", dt_shift),
+            ((*fpath, "dt_proj_bias"), f"{tkey}.dt_proj.bias", "raw"),
+            ((*fpath, "A_log"), f"{tkey}.A_log", "raw"),
+            ((*fpath, "D"), f"{tkey}.D", "raw")]
 
 
 def lm_pairs(n_layer: int, d_model: int, rms_norm: bool) -> list:
