@@ -86,6 +86,11 @@ def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
+def _rdtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a norm reduces in: f32, or f64 for an f64 input."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _cdtype(compute_dtype: Optional[torch.dtype], x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     return compute_dtype or torch.promote_types(x.dtype, w.dtype)
 
@@ -115,7 +120,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm reduced in f32, as flax's `BatchNorm(momentum=0.9)`.
+    """BatchNorm reduced in f32 (f64 inputs in f64), as flax's
+    `BatchNorm(momentum=0.9)`.
 
     Eval mode normalises with the running statistics. Train mode normalises
     with the batch mean and the biased batch variance E[x^2] - E[x]^2
@@ -125,16 +131,17 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     MOMENTUM = 0.9  # flax's convention: the weight of the old running value
 
-    def __init__(self, num_features: int, compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(num_features, eps=1e-5)
+    def __init__(self, num_features: int, compute_dtype: Optional[torch.dtype] = None,
+                 eps: float = 1e-5):
+        super().__init__(num_features, eps=eps)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        cd = _cdtype(self.compute_dtype, x, self.weight)
-        xf = x.float()
+        cd, rd = _cdtype(self.compute_dtype, x, self.weight), _rdtype(x)
+        xf = x.to(rd)
         if not self.training:
-            y = F.batch_norm(xf, self.running_mean.float(), self.running_var.float(),
-                             self.weight.float(), self.bias.float(), False, 0.0, self.eps)
+            y = F.batch_norm(xf, self.running_mean.to(rd), self.running_var.to(rd),
+                             self.weight.to(rd), self.bias.to(rd), False, 0.0, self.eps)
             return y.to(cd)
         mean = xf.mean((0, 2, 3))
         var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
@@ -142,8 +149,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean.detach().to(self.running_mean.dtype), alpha=1 - m)
             self.running_var.mul_(m).add_(var.detach().to(self.running_var.dtype), alpha=1 - m)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(rd)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(rd)[:, None, None]
         return y.to(cd)
 
 
@@ -168,6 +175,25 @@ class Dropout2d(nn.Module):
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
+class Dropout(nn.Module):
+    """Element dropout in train mode: each element is kept with probability
+    1 - p and scaled by 1 / (1 - p), or zeroed (flax's `Dropout(p)`). The
+    keep mask is drawn from `generator` (a `torch.Generator` on the input's
+    device) when one is set. Identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
     """Stochastic depth in train mode: each sample's branch is kept with
     probability 1 - p and scaled by 1 / (1 - p), or zeroed (dkDualNet's
@@ -189,21 +215,49 @@ class DropPath(nn.Module):
         return x * (u < keep).to(x.dtype) / keep
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` that `init_flax_style` initialises as flax's `Dense`."""
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              bias: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q kᵀ · scale + bias + mask) v over (..., tokens, head_dim)
+    operands: the attention of the zoo's transformers, as the JAX package
+    computes it in XLA. `bias` and `mask` are additive and broadcast
+    against the (..., q tokens, k tokens) logits."""
+    att = torch.matmul(q, k.transpose(-2, -1)) * scale
+    if bias is not None:
+        att = att + bias
+    if mask is not None:
+        att = att + mask
+    return torch.matmul(att.softmax(dim=-1), v)
+
+
+def channels_last(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn over the channel axis of NCHW `x` (a `Linear`, a `LayerNorm`):
+    NHWC in, NCHW out."""
+    return nhwc_to_nchw(fn(nchw_to_nhwc(x)))
+
+
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last (channel) axis, reduced in f32 and returned
-    in the promotion of input and weight dtypes (flax's `LayerNorm`)."""
+    """LayerNorm over the last (channel) axis, reduced in f32 (f64 inputs in
+    f64) and returned in the promotion of input and weight dtypes (flax's
+    `LayerNorm`)."""
 
     def __init__(self, num_features: int, eps: float):
         super().__init__(num_features, eps=eps)
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                         self.bias.float(), self.eps)
+        rd = _rdtype(x)
+        y = F.layer_norm(x.to(rd), self.normalized_shape, self.weight.to(rd), self.bias.to(rd),
+                         self.eps)
         return y.to(_cdtype(None, x, self.weight))
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm reduced in f32 (eps 1e-5, the torch reference's)."""
+    """GroupNorm reduced in f32 (f64 inputs in f64; eps 1e-5, the torch
+    reference's)."""
 
     def __init__(self, num_groups: int, num_channels: int,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -212,8 +266,9 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x):
         cd = _cdtype(self.compute_dtype, x, self.weight)
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.eps)
+        rd = _rdtype(x)
+        y = F.group_norm(x.to(rd), self.num_groups, self.weight.to(rd), self.bias.to(rd),
+                         self.eps)
         return y.to(cd)
 
 
@@ -229,11 +284,16 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 def init_flax_style(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise convolutions as flax does by default: lecun-normal
-    kernels with fan_in = in_channels * kernel area, zero biases. (Norms
-    already start at weight 1, bias 0, mean 0, var 1.)"""
+    """Re-initialise this module's convolutions and `Linear`s as flax does
+    by default: lecun-normal kernels with fan_in = in_channels * kernel
+    area (in_features), zero biases. (Norms already start at weight 1, bias
+    0, mean 0, var 1.)"""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and type(m).__module__ == __name__:
+        if isinstance(m, Linear):
+            lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and type(m).__module__ == __name__:
             w = m.weight
             area = w.shape[2] * w.shape[3]
             fan_in = area * (w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1])

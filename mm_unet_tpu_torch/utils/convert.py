@@ -5,9 +5,15 @@ The tables in `mm_unet_tpu/utils/torch_convert.py` (`mm_net_pairs`,
 variable path to the torch reference's key and a layout kind, in the
 direction torch -> flax. `jax_to_torch_state_dict` inverts each kind, so the
 same tables load JAX weights into this package's modules, which carry the
-torch reference's names. The caller passes the pair list; this module
-imports neither jax nor the JAX package. The JAX package has no table for
-the Mamba LM: `lm_pairs` is the port's own, in the same form.
+torch reference's names. A table's function kinds are inverted as gathers
+(`_gather_index`): the function, applied to the torch tensor's element
+indices, says which torch element each flax element holds, so the flax
+values are scattered back; several entries may fill one torch tensor (the
+fused qkv weight of `mhdpa_pairs`), and together they must fill each
+element exactly once. The dt_proj weight's shift, the one function kind
+that is not a gather, is undone as such. The caller passes the pair list;
+this module imports neither jax nor the JAX package. The JAX package has
+no table for the Mamba LM: `lm_pairs` is the port's own, in the same form.
 """
 
 from __future__ import annotations
@@ -39,14 +45,54 @@ _INVERSE = {
 }
 
 
-def _invert(kind, tkey: str, val: np.ndarray) -> np.ndarray:
-    if isinstance(kind, str):
-        return _INVERSE[kind](val)
-    # the tables' only function kind: dt_proj weights stored shifted by
-    # +dt_rank**-0.5 in flax (mm_unet_tpu/models/mamba.py:119-120)
-    if not _DT_PROJ.search(tkey):
-        raise ValueError(f"no inverse for the function kind of {tkey}")
-    return val - val.shape[1] ** -0.5
+def _gather_index(kind, shape: tuple) -> np.ndarray:
+    """For a function kind that only moves elements (slices, transposes,
+    reshapes, permutations): the torch tensor's flat element index that each
+    element of the flax leaf holds."""
+    idx = np.asarray(kind(np.arange(math.prod(shape)).reshape(shape)))
+    if not np.issubdtype(idx.dtype, np.integer):
+        raise ValueError(f"function kind {kind} is not a gather of the torch tensor")
+    return idx
+
+
+def _from_flax(entries: list, like: Optional[Mapping], grads: bool) -> dict[str, np.ndarray]:
+    """entries (torch key, kind, flax value) -> {torch key: value}. A string
+    kind's layout is inverted; the dt_proj function kind unshifts the weight
+    (a gradient passes unchanged: d(w - c)/dw = 1); any other function kind
+    is scattered back through `_gather_index`, which needs the torch shape
+    from `like`, and the entries of one torch key must together fill each of
+    its elements exactly once."""
+    out, scattered = {}, {}
+    for tkey, kind, val in entries:
+        if isinstance(kind, str) or _DT_PROJ.search(tkey):
+            if tkey in out or tkey in scattered:
+                raise ValueError(f"torch key {tkey} mapped twice")
+            if isinstance(kind, str):
+                out[tkey] = _INVERSE[kind](val)
+            else:  # stored shifted by +dt_rank**-0.5 (mm_unet_tpu/models/mamba.py:119-120)
+                out[tkey] = val if grads else val - val.shape[1] ** -0.5
+        else:
+            if tkey in out:
+                raise ValueError(f"torch key {tkey} mapped twice")
+            scattered.setdefault(tkey, []).append((kind, val))
+    for tkey, parts in scattered.items():
+        if like is None or tkey not in like:
+            raise ValueError(f"the function kind of {tkey} needs the torch shape: pass `like`")
+        shape = tuple(like[tkey].shape)
+        flat = np.zeros(math.prod(shape), np.result_type(*(v for _, v in parts)))
+        hits = np.zeros(flat.size, np.int64)
+        for kind, val in parts:
+            idx = _gather_index(kind, shape)
+            if idx.shape != val.shape:
+                raise ValueError(f"{tkey}: the function kind gives {idx.shape}, the leaf is "
+                                 f"{val.shape}")
+            flat[idx.ravel()] = val.ravel()
+            np.add.at(hits, idx.ravel(), 1)
+        if not (hits == 1).all():
+            raise ValueError(f"{tkey}: the pairs fill {int((hits > 0).sum())} of {flat.size} "
+                             f"elements, {int((hits > 1).sum())} more than once")
+        out[tkey] = flat.reshape(shape)
+    return out
 
 
 def _leaves(tree: Mapping, prefix=()) -> dict[tuple, np.ndarray]:
@@ -59,16 +105,25 @@ def _leaves(tree: Mapping, prefix=()) -> dict[tuple, np.ndarray]:
     return out
 
 
-def jax_grads_to_torch(grads_np: Mapping, pairs: Iterable) -> dict[str, torch.Tensor]:
+def _torch(arrays: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    # a writable C-ordered copy (np.ascontiguousarray would make 0-d 1-d)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in arrays.items()}
+
+
+def jax_grads_to_torch(grads_np: Mapping, pairs: Iterable,
+                       like: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> dict[str, torch.Tensor]:
     """Gradients of the flax params (nested dicts of numpy arrays, the
     `params` tree's structure) -> {torch parameter name: gradient}, by the
     same pair tables. Only each kind's layout is inverted: the dt_proj
     function kind stores the weight shifted by a constant, whose derivative
-    is the identity, so its gradient passes unchanged. BatchNorm statistics
-    (mean/var) have no gradients and are skipped. Strict like
-    `jax_to_torch_state_dict`: every param pair must find its gradient."""
+    is the identity, so its gradient passes unchanged; the gather kinds
+    need `like` (a torch state_dict or named parameters) for their shapes.
+    BatchNorm statistics (mean/var) have no gradients and are skipped.
+    Strict like `jax_to_torch_state_dict`: every param pair must find its
+    gradient."""
     leaves = _leaves(grads_np)
-    out, used, missing = {}, set(), []
+    entries, used, missing = [], set(), []
     for fpath, tkey, kind in pairs:
         if fpath[-1] in ("mean", "var"):
             continue
@@ -77,18 +132,12 @@ def jax_grads_to_torch(grads_np: Mapping, pairs: Iterable) -> dict[str, torch.Te
             missing.append(path)
             continue
         used.add(path)
-        if isinstance(kind, str):
-            val = _INVERSE[kind](leaves[path])
-        elif _DT_PROJ.search(tkey):
-            val = leaves[path]  # d(w - c)/dw = 1
-        else:
-            raise ValueError(f"no gradient inverse for the function kind of {tkey}")
-        out[tkey] = torch.from_numpy(np.array(val, order="C"))
+        entries.append((tkey, kind, leaves[path]))
     unused = sorted(set(leaves) - used)
     if missing or unused:
         raise ValueError(f"pair table mismatch: {len(missing)} missing gradients "
                          f"{missing[:5]}, {len(unused)} unused gradients {unused[:5]}")
-    return out
+    return _torch(_from_flax(entries, like, grads=True))
 
 
 def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
@@ -100,26 +149,24 @@ def jax_to_torch_state_dict(variables_np: Mapping, pairs: Iterable,
     running_mean/running_var. Strict: every pair's leaf must exist, every
     leaf must be used, and, when `like` (a torch state_dict) is given, the
     keys and shapes must be exactly its own (BatchNorm's
-    num_batches_tracked aside)."""
+    num_batches_tracked aside). The gather kinds need `like`."""
     leaves = {}
     for coll in ("params", "batch_stats"):
         leaves.update({(coll,) + p: v for p, v in _leaves(variables_np.get(coll, {})).items()})
-    sd, used, missing = {}, set(), []
+    entries, used, missing = [], set(), []
     for fpath, tkey, kind in pairs:
         coll = "batch_stats" if fpath[-1] in ("mean", "var") else "params"
         path = (coll,) + tuple(fpath)
         if path not in leaves:
             missing.append(path)
             continue
-        if tkey in sd:
-            raise ValueError(f"torch key {tkey} mapped twice")
         used.add(path)
-        # a writable C-ordered copy (np.ascontiguousarray would make 0-d 1-d)
-        sd[tkey] = torch.from_numpy(np.array(_invert(kind, tkey, leaves[path]), order="C"))
+        entries.append((tkey, kind, leaves[path]))
     unused = sorted(set(leaves) - used)
     if missing or unused:
         raise ValueError(f"pair table mismatch: {len(missing)} missing flax leaves "
                          f"{missing[:5]}, {len(unused)} unused leaves {unused[:5]}")
+    sd = _torch(_from_flax(entries, like, grads=False))
     if like is not None:
         want = {k: tuple(v.shape) for k, v in like.items()
                 if not k.endswith("num_batches_tracked")}
