@@ -130,10 +130,12 @@ def grad_errors(got: dict, want: dict, tol=F64_TOL, floor=GRAD_FLOOR) -> list:
     return bad
 
 
-def check_train(jm, tm, variables, pairs, x, y, tol=F64_TOL, floor=GRAD_FLOOR, what=""):
+def check_train(jm, tm, variables, pairs, x, y, tol=F64_TOL, floor=GRAD_FLOOR, what="",
+                prepare=None):
     """One train-mode pass of both, in float64: logits, DiceFocal loss,
     every parameter gradient and every updated BatchNorm running
-    statistic. (In f32 the random-init train step is ill-conditioned: at
+    statistic. `prepare(tm)` runs after the port's model is put in train
+    mode. (In f32 the random-init train step is ill-conditioned: at
     UNet's 2x3x64x64, the JAX step's own f32 gradients lie up to 1.6e-2 of
     their tensor's largest from its f64 ones, the port's 6.4e-3.)"""
     rest = {k: v for k, v in variables.items() if k != "params"}
@@ -148,6 +150,8 @@ def check_train(jm, tm, variables, pairs, x, y, tol=F64_TOL, floor=GRAD_FLOOR, w
         (jloss, (jout, upd)), jgrads = jax.device_get(
             jax.jit(jax.value_and_grad(loss, has_aux=True))(*f64))
     load_torch(tm, variables, pairs).double().train()
+    if prepare is not None:
+        prepare(tm)
     out = tm(torch.from_numpy(x).double())
     total = dice_focal_loss(out, torch.from_numpy(y).double())
     total.backward()
@@ -170,11 +174,14 @@ def check_train(jm, tm, variables, pairs, x, y, tol=F64_TOL, floor=GRAD_FLOOR, w
 
 
 def test_unet_matches_jax():
-    x, y = inputs(0)
+    """Eval at 2x3x64x64; the float64 train pass at 2x3x32x32 (XLA's
+    float64 convolutions on the CPU take 6.6 s at 64²; 32² still leaves a
+    2x2 map with BatchNorm over 8 values a channel at the bottom)."""
+    x, _ = inputs(0)
     jm = junet.UNet(num_classes=1)
-    v = jax_variables(jm, x, seed=1)
-    check_eval(jm, UNet(), v, unet_pairs(), x, what="UNet")
-    check_train(jm, UNet(), v, unet_pairs(), x, y, what="UNet")
+    check_eval(jm, UNet(), jax_variables(jm, x, seed=1), unet_pairs(), x, what="UNet")
+    x, y = inputs(6, size=32)
+    check_train(jm, UNet(), jax_variables(jm, x, seed=7), unet_pairs(), x, y, what="UNet")
 
 
 def test_unet_transposed_ups_match_jax():
