@@ -1,4 +1,5 @@
-"""Models: MM_Net, dkDualNet, UM_Net and their blocks."""
+"""Models: MM_Net, dkDualNet, UM_Net, the zoo (UNet, ConvUNeXt, CFPNet, UNETR,
+TransUNet, SwinUNETR, PVTv2 and FCBFormer) and their blocks."""
 
 from mm_unet_tpu_torch.models.registry import give_model, give_model_from_config
 

@@ -1,11 +1,13 @@
 """Model factory (counterpart of `mm_unet_tpu/models/registry.py`): by name
 (`give_model`) or by `config.finetune.model_choose` with the keyword
 arguments of the config's `models.<name>.branch1` or `branch5` section
-(`give_model_from_config`). MM_Net, dkDualNet and UM_Net are ported; the
-rest of the zoo is queued in ROADMAP.md."""
+(`give_model_from_config`). MM_Net, dkDualNet, UM_Net, UNet, ConvUNeXt
+(also as ConvUNetXt), CFPNet, UNETR, TransUNet, SWINUNETR and FCBFormer
+are ported; the rest of the zoo is queued in ROADMAP.md."""
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -13,11 +15,20 @@ import torch.nn as nn
 
 
 def _constructors() -> dict:
+    from mm_unet_tpu_torch.models.cfpnet import CFPNet
+    from mm_unet_tpu_torch.models.convunext import ConvUNeXt
     from mm_unet_tpu_torch.models.dkdualnet import dkDualNet
+    from mm_unet_tpu_torch.models.fcbformer import FCBFormer
     from mm_unet_tpu_torch.models.mm_unet import MM_Net
+    from mm_unet_tpu_torch.models.swin_unetr import SwinUNETR
+    from mm_unet_tpu_torch.models.transunet import TransUNet
     from mm_unet_tpu_torch.models.um_net import UM_Net
+    from mm_unet_tpu_torch.models.unet import UNet
+    from mm_unet_tpu_torch.models.unetr import UNETR
 
-    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet, "UM_Net": UM_Net}
+    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet, "UM_Net": UM_Net, "UNet": UNet,
+            "ConvUNeXt": ConvUNeXt, "ConvUNetXt": ConvUNeXt, "CFPNet": CFPNet, "UNETR": UNETR,
+            "TransUNet": TransUNet, "SWINUNETR": SwinUNETR, "FCBFormer": FCBFormer}
 
 
 def give_model(name: str, device: torch.device | str = "cuda",
@@ -30,7 +41,17 @@ def give_model(name: str, device: torch.device | str = "cuda",
     `out_channels`, `depths`, `dims`, `kernel_size`, `out_dim`,
     `num_slices_list`, `drop_path_rate`, and `scan_impl` (the Mambas'
     route); for UM_Net the JAX constructor's `num_classes`,
-    `num_slices_list`, `out_indices` and `heads`."""
+    `num_slices_list`, `out_indices` and `heads`. The zoo takes the JAX
+    constructors' arguments: UNet `n_channels`, `num_classes`, `bilinear`;
+    ConvUNeXt `in_channels`, `num_classes`, `bilinear`, `base_c`; CFPNet
+    `classes`, `block_1`, `block_2`; UNETR `in_channels`, `out_channels`,
+    `img_size`, `feature_size`, `hidden_size`, `mlp_dim`, `num_heads`,
+    `num_layers`, `patch_size`, `spatial_dims`; TransUNet `img_dim`,
+    `in_channels`, `out_channels` (its width), `head_num`, `mlp_dim`,
+    `block_num`, `patch_dim`, `class_num`; SWINUNETR `img_size`,
+    `in_channels`, `out_channels`, `feature_size`, `depths`, `num_heads`,
+    `window`, `use_checkpoint`, `spatial_dims`; FCBFormer `size`,
+    `num_class`, `model_dir`."""
     models = _constructors()
     if name not in models:
         raise NotImplementedError(
@@ -57,6 +78,10 @@ _CONFIG_KEYS = {
 _BRANCH1_ONLY = {"UM_Net", "MM_Net", "dkDualNet", "FRUNet", "ConvUNetXt", "UNet3Plus", "ATTUNet"}
 # config keys the JAX MM_Net accepts for config parity and never reads
 _UNUSED = {"MM_Net": ("out_indices", "heads")}
+# the zoo's own names for config.yml's `num_classes`
+_CLASS_COUNT_KEYS = ("class_num", "classes", "out_channels", "num_class")
+# the constructor argument that fixes the input size, where one does
+_INPUT_SIZE_KEYS = {"TransUNet": "img_dim", "UNETR": "img_size"}
 
 
 def _model_kwargs(config, name: str) -> dict:
@@ -69,11 +94,38 @@ def _model_kwargs(config, name: str) -> dict:
     return kwargs
 
 
+def _constructor_kwargs(config, name: str, kwargs: dict) -> dict:
+    """config.yml's sections name the class count `num_classes` for every
+    model; the zoo's constructors call it `class_num`, `classes`,
+    `out_channels` or `num_class` (with those sections the JAX package's
+    TransUNet, UNETR, SWINUNETR, FCBFormer and CFPNet raise a TypeError).
+    Rename it to the constructor's own, unless the section gives that too;
+    and give TransUNet and UNETR the dataset's image size where the
+    section does not fix it."""
+    ctor = _constructors().get(name)
+    if ctor is None:
+        return kwargs
+    params = inspect.signature(ctor).parameters
+    kwargs = dict(kwargs)
+    if "num_classes" in kwargs and "num_classes" not in params:
+        own = next((k for k in _CLASS_COUNT_KEYS if k in params), None)
+        if own is not None and own not in kwargs:
+            kwargs[own] = kwargs.pop("num_classes")
+    size_key = _INPUT_SIZE_KEYS.get(name)
+    dataset = (config.get("dataset") or {}).get(config.trainer.get("dataset_choose", ""), {})
+    if size_key and size_key not in kwargs and "image_size" in (dataset or {}):
+        kwargs[size_key] = int(dataset["image_size"])
+    return kwargs
+
+
 def give_model_from_config(config, device: torch.device | str = "cuda",
                            generator: Optional[torch.Generator] = None) -> nn.Module:
     """`give_model(config.finetune.model_choose, device, generator, **kwargs)`
     with the keyword arguments of the config's branch1 section (branch5 for
     EDD_seg, except the models that keep branch1), as the JAX package's
-    `give_model(config)` reads them."""
+    `give_model(config)` reads them, the class count renamed to the model's
+    own keyword and the input size given where a model fixes it
+    (`_constructor_kwargs`)."""
     name = config.finetune.model_choose
-    return give_model(name, device, generator, **_model_kwargs(config, name))
+    kwargs = _constructor_kwargs(config, name, _model_kwargs(config, name))
+    return give_model(name, device, generator, **kwargs)

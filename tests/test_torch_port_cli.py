@@ -259,13 +259,50 @@ def test_give_model_from_config():
     model = give_model_from_config(config, "cpu", torch.Generator().manual_seed(0))
     assert type(model).__name__ == "MM_Net" and not model.training
     assert len(model.encoder2) == 1 and model.num_slices_list == (4, 4, 4, 4)
-    config.finetune.model_choose = "TransUNet"
+    config.finetune.model_choose = "DuAT"
     with pytest.raises(NotImplementedError, match="not ported"):
         give_model_from_config(config, "cpu")
     if not torch.cuda.is_available():
         config.finetune.model_choose = "MM_Net"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             give_model_from_config(config)
+
+
+# the output head of each of config.yml's models
+CONFIG_HEADS = {"MM_Net": "side2.conv2", "UM_Net": "final.4", "UNet": "outc.conv",
+                "TransUNet": "decoder.conv1", "UNETR": "out", "SWINUNETR": "out",
+                "FCBFormer": "PH.2", "ConvUNeXt": "out_conv.0", "CFPNet": "classifier.0.conv"}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIG_HEADS))
+def test_give_model_from_config_builds_every_model_of_config_yml(name):
+    """config.yml unchanged (DRIVE): each model of its `models:` builds and
+    its head gives the section's `num_classes`, renamed to the model's own
+    keyword; TransUNet takes the dataset's 512² (UNETR's section says 512
+    itself). Build only: no forward."""
+    config = load_config(str(ROOT / "config.yml"))
+    assert set(config.models) == set(CONFIG_HEADS)
+    config.finetune.model_choose = name
+    model = give_model_from_config(config, "cpu", torch.Generator().manual_seed(0))
+    head = dict(model.named_modules())[CONFIG_HEADS[name]]
+    assert head.out_channels == config.models[name].branch1.num_classes == 1
+    if name == "TransUNet":
+        assert model.img_dim == 512
+    if name == "UNETR":
+        assert model.img_size == 512
+
+
+def test_constructor_kwargs_rename_the_class_count_once():
+    from mm_unet_tpu_torch.models.registry import _constructor_kwargs
+
+    config = load_config(str(ROOT / "config.yml"))
+    assert _constructor_kwargs(config, "CFPNet", {"num_classes": 3}) == {"classes": 3}
+    assert _constructor_kwargs(config, "UNet", {"num_classes": 3}) == {"num_classes": 3}
+    # a section that gives the model's own keyword is left alone
+    assert (_constructor_kwargs(config, "FCBFormer", {"num_classes": 3, "num_class": 2})
+            == {"num_classes": 3, "num_class": 2})
+    assert _constructor_kwargs(config, "TransUNet", {"img_dim": 64}) == {"img_dim": 64}
+    assert _constructor_kwargs(config, "DuAT", {"num_classes": 3}) == {"num_classes": 3}
 
 
 # --- the entry points ---------------------------------------------------------

@@ -8,8 +8,12 @@ widths and PVTv2-b3's 28 blocks are fixed), in the forms of
 train-mode pass in float64 with every parameter gradient (the PVT's drop
 path is 0; see the test for its size).
 Tolerances as there: f32 maps and logits LOGITS_TOL, float64 gradients
-F64_TOL per tensor.
+F64_TOL per tensor. Plus the zoo's import boundary: none of its modules
+imports JAX or the JAX package.
 """
+
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -83,3 +87,16 @@ def test_fcbformer_matches_jax(monkeypatch):
     x, y = inputs(25, b=1, size=32)
     check_train(jm, tm, jax_variables(jm, x, seed=26), fcbformer_pairs(DEPTHS), x, y,
                 what="FCBFormer")
+
+
+def test_zoo_modules_never_import_jax():
+    code = (
+        "import sys\n"
+        "from mm_unet_tpu_torch.models.registry import _constructors\n"
+        "assert len(_constructors()) == 11\n"
+        "import mm_unet_tpu_torch.models.pvtv2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'mm_unet_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
