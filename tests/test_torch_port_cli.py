@@ -268,6 +268,24 @@ def test_give_model_from_config():
             give_model_from_config(config)
 
 
+def test_load_config_reads_config_yml_without_pyyaml(monkeypatch):
+    """Where PyYAML is missing (the GPU machine), `load_config` reads
+    config.yml and the tests' tiny config as `yaml.safe_load` does, and
+    refuses YAML outside its subset."""
+    import yaml
+
+    from mm_unet_tpu_torch.utils.config import load_yaml_subset
+
+    tiny = TINY_YAML.format(name="t", epochs=2, resume="false")
+    for text in ((ROOT / "config.yml").read_text(), tiny, "a:\n  b: [1, 'x', 2.5, true, null]\n"):
+        assert load_yaml_subset(text) == yaml.safe_load(text)
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises ImportError
+    assert load_config(str(ROOT / "config.yml")) == yaml.safe_load((ROOT / "config.yml").read_text())
+    for bad in ("a:\n  - 1\n", "a: {b: 1}\n", "a: |\n  text\n"):
+        with pytest.raises(ValueError, match="not in the YAML subset"):
+            load_yaml_subset(bad)
+
+
 # the output head of each of config.yml's models
 CONFIG_HEADS = {"MM_Net": "side2.conv2", "UM_Net": "final.4", "UNet": "outc.conv",
                 "TransUNet": "decoder.conv1", "UNETR": "out", "SWINUNETR": "out",
