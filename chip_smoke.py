@@ -1953,11 +1953,11 @@ class Capture:
         return self.buf.getvalue()
 
 
-def cli_config(name: str, epochs: int, resume: bool = False):
-    """config.yml's trainer and DRIVE sections as a ConfigDict (the GPU
-    machine has no PyYAML): MM_Net at full width with its default depths,
-    `mamba_dtype` and remat, 512², batch 4, DRIVE's mean and std, no data
-    root (the synthetic set: 8 train images, 2 steps per epoch, 2 val)."""
+def cli_config(name: str, epochs: int, resume: bool = False, model: str = "MM_Net"):
+    """config.yml's trainer and DRIVE sections as a ConfigDict: `model`
+    (MM_Net at full width with its default depths, `mamba_dtype` and remat)
+    at 512², batch 4, DRIVE's mean and std, no data root (the synthetic
+    set: 8 train images, 2 steps per epoch, 2 val)."""
     from mm_unet_tpu_torch.utils import ConfigDict
 
     return ConfigDict(
@@ -1967,9 +1967,28 @@ def cli_config(name: str, epochs: int, resume: bool = False):
         dataset=dict(DRIVE=dict(data_root="", batch_size=4, num_workers=4, image_size=512,
                                 image_mean=[0.485, 0.456, 0.406],
                                 image_std=[0.229, 0.224, 0.225])),
-        finetune=dict(checkpoint=name, model_choose="MM_Net"),
-        models=dict(MM_Net=dict(branch1=dict(num_classes=1), branch5=dict(num_classes=5))),
+        finetune=dict(checkpoint=name, model_choose=model),
+        models={model: dict(branch1=dict(num_classes=1), branch5=dict(num_classes=5))},
     )
+
+
+def run_scalars(prefix: str) -> list:
+    """The scalar events of the one run under logs/ whose name starts with
+    `prefix` (the working directory's)."""
+    import glob
+    import os
+
+    from mm_unet_tpu_torch.utils.tracker import read_scalars
+
+    (path,) = glob.glob(os.path.join("logs", f"{prefix}*", "scalars.jsonl"))
+    return read_scalars(path)
+
+
+def store_meta(name: str, tag: str) -> dict:
+    import os
+
+    with open(os.path.join("model_store", name, f"{tag}_meta.json")) as f:
+        return json.load(f)
 
 
 def same_tensors(a, b) -> bool:
@@ -1992,7 +2011,6 @@ def phase9_cli(seed: int) -> dict:
     SIGTERM during the first epoch of a fresh run; (d) `cli.test.main` on
     the best checkpoint; (e) `cli.verify.main`. Returns each kernel's
     launches in (a)'s training and validation."""
-    import glob
     import os
     import shutil
     import signal
@@ -2004,7 +2022,6 @@ def phase9_cli(seed: int) -> dict:
     from mm_unet_tpu_torch.cli import verify as cli_verify
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.ops.tap_conv import tap_conv
-    from mm_unet_tpu_torch.utils.tracker import read_scalars
 
     counters = ((mamba_fused_scan, "mamba_fused_scan"), (tap_conv, "tap_conv"))
 
@@ -2016,13 +2033,7 @@ def phase9_cli(seed: int) -> dict:
         return {**{name: fn.launches for fn, name in counters},
                 **{f"{name}_bwd": fn.bwd_launches for fn, name in counters}}
 
-    def scalars(prefix: str) -> list:
-        (path,) = glob.glob(os.path.join("logs", f"{prefix}*", "scalars.jsonl"))
-        return read_scalars(path)
-
-    def meta(name: str, tag: str) -> dict:
-        with open(os.path.join("model_store", name, f"{tag}_meta.json")) as f:
-            return json.load(f)
+    scalars, meta = run_scalars, store_meta
 
     def report(tag: str, ok: bool, **fields):
         print(f"phase9 {tag} " + json.dumps(dict(**fields, ok=ok)), flush=True)
@@ -2395,6 +2406,291 @@ def phase10_lm(seed: int) -> dict:
 
 
 # kernel-name fragments -> the layer that launched the kernel
+# phase 11, the zoo: config.yml's seven models besides MM_Net and UM_Net,
+# f32, at config.yml's constructor settings and full width, seeded weights.
+# Each trains and serves at its dataset's protocol size: FCBFormer at the
+# polyp sets' 352² (config.yml's Kvasir_SEG / CVC_ClinicDB), the rest at
+# DRIVE's 512² (`bench.py`'s shape), batch 8
+ZOO = ("UNet", "ConvUNeXt", "CFPNet", "UNETR", "TransUNet", "SWINUNETR", "FCBFormer")
+ZOO_DATA = {"FCBFormer": ("Kvasir_SEG", 352)}
+CONFIG_MODELS = ("MM_Net", "UM_Net") + ZOO
+ZOO_TRAIN_STEPS = 4
+ZOO_SERVING_REPS = 5
+# card vs CPU at 128², f32: the eval logits per element as `rel_err`; every
+# parameter gradient of one train-mode pass (2x3x128², dropout at the
+# identity) relative to the larger of its own tensor's largest |CPU| and
+# ZOO_GRAD_FLOOR of the model's largest gradient (a bias or norm that feeds
+# a train-mode norm has zero gradient in exact arithmetic)
+ZOO_CPU_TOL = 1e-4
+ZOO_GRAD_TOL = 5e-2
+ZOO_GRAD_FLOOR = 1e-3
+
+
+def zoo_config(name: str, size: int | None = None):
+    """config.yml as `load_config` reads it, `name` chosen, its dataset at
+    its protocol (ZOO_DATA, else DRIVE); with `size`, the dataset's image
+    size and a section's own `img_size` set to it."""
+    from mm_unet_tpu_torch.utils import load_config
+
+    config = load_config("config.yml")
+    dataset = ZOO_DATA.get(name, ("DRIVE", 512))[0]
+    config.trainer.dataset_choose = dataset
+    config.finetune.model_choose = name
+    if size is not None:
+        config.dataset[dataset].image_size = size
+        section = config.models[name].branch1
+        if "img_size" in section:
+            section.img_size = size
+    return config
+
+
+def zoo_model(name: str, seed: int, device: str, size: int | None = None):
+    from mm_unet_tpu_torch.models import give_model_from_config
+
+    return give_model_from_config(zoo_config(name, size), device,
+                                  torch.Generator().manual_seed(seed))
+
+
+def zoo_forward_flops(name: str, seed: int) -> int:
+    """Operations of one forward of `name` at its protocol size, batch 8,
+    counted by `torch.utils.flop_counter` on the meta device (convolutions
+    and matmuls; norms and elementwise operations are not counted). A train
+    step is taken as three forwards."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    size = ZOO_DATA.get(name, ("DRIVE", 512))[1]
+    model = zoo_model(name, seed, "cpu").to("meta").eval()
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model(torch.zeros(8, 3, size, size, device="meta"))
+    return counter.get_total_flops()
+
+
+def kernel_counters() -> tuple:
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.ops.tap_conv import tap_conv
+
+    return (mamba_fused_scan, tap_conv, selective_scan_chunked)
+
+
+def kernel_launches() -> dict:
+    return {**{fn.__name__: fn.launches for fn in kernel_counters()},
+            **{f"{fn.__name__}_bwd": fn.bwd_launches for fn in kernel_counters()}}
+
+
+def phase11_card_vs_cpu(seed: int) -> dict:
+    """(a) Each zoo model at 128² (TransUNet and UNETR built for it), f32:
+    the eval logits at 1x3x128² on the card against the same weights on the
+    CPU, per element; then every parameter gradient of one train-mode pass
+    (DiceFocal) at 2x3x128², card against CPU, per tensor."""
+    from mm_unet_tpu_torch.models.layers import Dropout
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+
+    rng = np.random.default_rng(seed + 11)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 128, 128), np.float32))
+    y = torch.from_numpy((rng.random((2, 1, 128, 128)) < 0.2).astype(np.float32))
+    out = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        cpu_model = zoo_model(name, seed, "cpu", size=128)
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        with torch.inference_mode():
+            got, want = gpu_model(x[:1].cuda()).cpu(), cpu_model(x[:1])
+        err, rel = rel_err(got, want)
+        grads = {}
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            model.train()
+            for m in model.modules():
+                if isinstance(m, Dropout):
+                    m.eval()
+            dice_focal_loss(model(x.to(dev)), y.to(dev)).backward()
+            grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        bad, worst = tensor_grad_errs(grads["cuda"], grads["cpu"], ZOO_GRAD_TOL, set(),
+                                      ZOO_GRAD_FLOOR)
+        ok = bool(torch.isfinite(got).all()) and rel <= ZOO_CPU_TOL and bad == 0
+        out[name] = dict(logits_rel_err=rel, grad_worst=worst[0]["relative"])
+        print(f"phase11 {name} card vs cpu " + json.dumps(dict(
+            shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=ZOO_CPU_TOL,
+            grads=len(grads["cpu"]), grads_out_of_tol=bad, grad_tol=ZOO_GRAD_TOL,
+            grad_floor=ZOO_GRAD_FLOOR, grad_worst=worst, seconds=time.perf_counter() - t0,
+            ok=ok)), flush=True)
+        if not ok:
+            raise SystemExit(f"phase11 FAILED: {name} on the card disagrees with the CPU")
+    return out
+
+
+def phase11_path(name: str, seed: int) -> dict:
+    """(b) `name` at full width on the card: `val_one_epoch` over sliding
+    windows of its protocol size (overlap 0.5, two synthetic batches of 8,
+    f32 predictor), then the f32 predictor's images/s over
+    ZOO_SERVING_REPS batches; ZOO_TRAIN_STEPS `train_step`s at batch 8
+    (finite losses, the last below the first), train images/s over the
+    steps after the first, peak memory, and one profiled step's device ms
+    and busy share."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.evaluate import val_one_epoch
+    from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
+    from mm_unet_tpu_torch.train.metrics import build_metrics
+    from mm_unet_tpu_torch.train.predictor import make_predictor
+    from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
+
+    size = ZOO_DATA.get(name, ("DRIVE", 512))[1]
+    t0 = time.perf_counter()
+    flop = zoo_forward_flops(name, seed)
+    model = zoo_model(name, seed, "cuda")
+    params = sum(p.numel() for p in model.parameters())
+    batches = [synthetic_batch(8, size, seed + 9), synthetic_batch(8, size, seed + 10)]
+    inferer = SlidingWindowInferer(roi_size=(size, size), overlap=0.5)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    logits = []
+
+    def infer(images, predictor):
+        logits.append(inferer(images, predictor))
+        return logits[-1]
+
+    f1, metric, losses = val_one_epoch(model, loss_fn, infer, batches, build_metrics())
+    finite = all(bool(torch.isfinite(t).all()) for t in logits)
+    shapes_ok = [list(t.shape) for t in logits] == [list(b["label"].shape) for b in batches]
+    x = torch.from_numpy(batches[0]["image"]).cuda()
+    predictor = make_predictor(model)
+    inferer(x, predictor)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(ZOO_SERVING_REPS):
+        served = inferer(x, predictor)
+    torch.cuda.synchronize()
+    serve_rate = x.shape[0] * ZOO_SERVING_REPS / (time.perf_counter() - t1)
+    finite = finite and bool(torch.isfinite(served).all()) and all(np.isfinite(losses))
+
+    batch = synthetic_batch(8, size, seed + 2)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    # lr 1e-3 held constant: warmup 1 epoch of a million steps
+    config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, steps_per_epoch=10**6,
+                              weight_decay=0.05, optimizer="adamw")}
+    state = create_train_state(model, config, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    step_losses, times = [], []
+    for _ in range(ZOO_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        scalars, _ = train_step(state, x, y, loss_fn)
+        step_losses.append(float(scalars["total_loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    train_rate = x.shape[0] * (ZOO_TRAIN_STEPS - 1) / sum(times[1:])
+    prof = profile_step(f"zoo {name} train", lambda: train_step(state, x, y, loss_fn))
+    ok = (finite and shapes_ok and all(map(math.isfinite, step_losses))
+          and step_losses[-1] < step_losses[0])
+    result = dict(size=size, batch=8, params=params, forward_flop=flop,
+                  train_tflop_per_s=3 * flop * (ZOO_TRAIN_STEPS - 1) / sum(times[1:]) / 1e12,
+                  serve_tflop_per_s=flop / 8 * serve_rate / 1e12, val_losses=losses,
+                  metrics={k: (v if v == v else None) for k, v in metric.items()},
+                  serve_images_per_sec_f32=serve_rate, train_losses=step_losses,
+                  step_seconds=times, train_images_per_sec=train_rate,
+                  max_memory_allocated_bytes=peak, device_ms=prof["device_ms"],
+                  wall_ms=prof["wall_ms"], busy_share=prof["busy_share"],
+                  device_launches=prof["launches"], seconds=time.perf_counter() - t0)
+    print(f"phase11 {name} path " + json.dumps(dict(**result, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit(f"phase11 FAILED: {name}'s serving or training path")
+    return result
+
+
+def phase11_config_models(seed: int) -> None:
+    """(c) `give_model_from_config` on config.yml unchanged, for each of its
+    nine models, on the card: each builds, and a 1x3x512² forward gives
+    (1, 1, 512, 512) finite logits."""
+    from mm_unet_tpu_torch.models import give_model_from_config
+    from mm_unet_tpu_torch.utils import load_config
+
+    x = torch.from_numpy(np.random.default_rng(seed + 12).standard_normal(
+        (1, 3, 512, 512), np.float32)).cuda()
+    shapes = {}
+    for name in CONFIG_MODELS:
+        config = load_config("config.yml")
+        config.finetune.model_choose = name
+        model = give_model_from_config(config, "cuda", torch.Generator().manual_seed(seed))
+        with torch.inference_mode():
+            out = model(x)
+        shapes[name] = list(out.shape) if bool(torch.isfinite(out).all()) else None
+        del model, out
+    ok = sorted(load_config("config.yml").models) == sorted(CONFIG_MODELS) and all(
+        s == [1, 1, 512, 512] for s in shapes.values())
+    print("phase11 config.yml models " + json.dumps(dict(shapes=shapes, ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase11 FAILED: a model of config.yml does not build or run")
+
+
+def phase11_cli(seed: int) -> dict:
+    """(d) `cli.train.main` for 2 epochs with `model_choose: UNet` at
+    config.yml's DRIVE settings (512², batch 4, the synthetic set), then
+    `cli.test.main` on its best checkpoint, in a fresh working directory:
+    finite step losses, `best` and `checkpoint` written, the test's f1 and
+    Dice within 1e-3 of those stored with `best`, epoch 2's
+    `Train/images_per_sec`."""
+    import os
+    import shutil
+    import tempfile
+
+    from mm_unet_tpu_torch.cli import test as cli_test
+    from mm_unet_tpu_torch.cli import train as cli_train
+
+    home, synth_n = os.getcwd(), os.environ.pop("MMU_SYNTH_N", None)
+    work = tempfile.mkdtemp(prefix="mmu_phase11_")
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rc_train = cli_train.main(cli_config("UNet", 2, model="UNet"), "cuda")
+        events = run_scalars("UNet")
+        step_losses = [e["Train/total_loss"] for e in events if "Train/total_loss" in e]
+        rates = [e["Train/images_per_sec"] for e in events if "Train/images_per_sec" in e]
+        files = {f: os.path.exists(os.path.join("model_store", "UNet", f))
+                 for f in ("best", "best_meta.json", "checkpoint", "checkpoint_meta.json")}
+        with Capture() as out:
+            rc_test = cli_test.main(cli_config("UNet", 2, model="UNet"), "cuda")
+        got = run_scalars("test_UNet")[-1]
+        best = store_meta("UNet", "best")["best_class"] if files["best_meta.json"] else {}
+        diffs = {k: abs(got[k] - best[k]) for k in ("Val/mean f1", "Val/mean dice_metric")
+                 if k in best}
+        ok = (rc_train == 0 and rc_test == 0 and len(step_losses) == 4
+              and all(map(math.isfinite, step_losses)) and all(files.values())
+              and "loaded best checkpoint" in out.text and len(diffs) == 2
+              and max(diffs.values()) <= 1e-3 and len(rates) == 2)
+        result = dict(rc=[rc_train, rc_test], step_losses=step_losses, files=files,
+                      test_diffs=diffs, tol=1e-3, train_images_per_sec=rates,
+                      seconds=time.perf_counter() - t0)
+    finally:
+        os.chdir(home)
+        if synth_n is not None:
+            os.environ["MMU_SYNTH_N"] = synth_n
+        shutil.rmtree(work, ignore_errors=True)
+    print("phase11 cli UNet " + json.dumps(dict(**result, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase11 FAILED: the entry points with model_choose UNet")
+    return result
+
+
+def phase11_zoo(seed: int) -> None:
+    """Phase 11, (a)-(d); kernels 1-8 must not launch over (a) and (b)."""
+    t0 = time.perf_counter()
+    for fn in kernel_counters():
+        fn.launches = fn.bwd_launches = 0
+    card = phase11_card_vs_cpu(seed)
+    paths = {name: phase11_path(name, seed) for name in ZOO}
+    launches = kernel_launches()
+    print("phase11 zoo kernel launches " + json.dumps(dict(
+        launches=launches, ok=not any(launches.values()))), flush=True)
+    if any(launches.values()):
+        raise SystemExit("phase11 FAILED: a zoo model launched a kernel of kernels 1-8")
+    phase11_config_models(seed)
+    cli = phase11_cli(seed)
+    keys = ("serve_images_per_sec_f32", "train_images_per_sec", "max_memory_allocated_bytes",
+            "device_ms", "busy_share", "forward_flop", "train_tflop_per_s")
+    print("phase11 zoo summary " + json.dumps(dict(
+        models={name: {**card[name], **{k: paths[name][k] for k in keys}} for name in ZOO},
+        cli_train_images_per_sec=cli["train_images_per_sec"],
+        seconds=time.perf_counter() - t0, card=smi())), flush=True)
+
+
 _KERNEL_GROUPS = (
     ("mamba_fused_scan", FWD_KERNELS),
     ("mamba_fused_scan_bwd pass C", ("mamba_bwd_chunk",)),
@@ -2413,9 +2709,10 @@ _KERNEL_GROUPS = (
 )
 
 
-def profile_step(path: str, step) -> None:
+def profile_step(path: str, step) -> dict:
     """One profiled call of `step` (already warm): device time by layer and
-    the top kernels, and the share of the wall time the device was busy."""
+    the top kernels, and the share of the wall time the device was busy
+    (printed; returns wall_ms, device_ms, busy_share and launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2432,13 +2729,14 @@ def profile_step(path: str, step) -> None:
         group = next((g for g, frags in _KERNEL_GROUPS if any(f in name for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    numbers = dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms,
+                   launches=sum(e.count for e in kernels))
     print(f"profile {path} " + json.dumps(dict(
-        wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms,
-        launches=sum(e.count for e in kernels),
-        by_layer_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        **numbers, by_layer_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count)
                      for e in top],
         card=smi())), flush=True)
+    return numbers
 
 
 def main() -> None:
@@ -2495,6 +2793,8 @@ def main() -> None:
     print(f"phase9 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     lm = phase10_lm(args.seed)
     print(f"phase10 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    phase11_zoo(args.seed)
+    print(f"phase11 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
