@@ -2519,9 +2519,10 @@ def phase11_card_vs_cpu(seed: int) -> dict:
         models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
         logits = {}
         for dtype in (torch.float32, torch.float64):
+            for model in models.values():
+                model.to(dtype)
             with torch.inference_mode():
-                got, want = (models[dev].to(dtype)(x[:1].to(dev, dtype)).cpu()
-                             for dev in ("cuda", "cpu"))
+                got, want = (models[dev](x[:1].to(dev, dtype)).cpu() for dev in ("cuda", "cpu"))
             logits[str(dtype)[6:]] = (*rel_err(got, want), bool(torch.isfinite(got).all()))
         grads = {}
         for dev, model in models.items():

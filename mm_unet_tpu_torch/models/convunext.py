@@ -26,8 +26,9 @@ from mm_unet_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
     Linear,
-    channels_last,
     init_flax_style,
+    nchw_to_nhwc,
+    nhwc_to_nchw,
     resize_bilinear_align_corners,
 )
 from mm_unet_tpu_torch.models.unet import pad_to
@@ -50,8 +51,8 @@ class ConvNeXtBlock(nn.Module):
         self.norm2 = BatchNorm2d(dim)
 
     def forward(self, x):
-        h = self.norm1(self.dwconv(_reflect_pad(x)))
-        h = channels_last(lambda t: self.pwconv2(F.gelu(self.pwconv1(t))), h)
+        h = nchw_to_nhwc(self.norm1(self.dwconv(_reflect_pad(x))))
+        h = nhwc_to_nchw(self.pwconv2(F.gelu(self.pwconv1(h))))
         return F.gelu(x + self.norm2(h))
 
 
@@ -92,7 +93,7 @@ class Up(nn.Module):
         else:
             x1 = self.up(x1)
         x1 = pad_to(x1, x2)
-        x2 = self._fuse(x1.permute(0, 2, 3, 1), x2.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x2 = nhwc_to_nchw(self._fuse(nchw_to_nhwc(x1), nchw_to_nhwc(x2)))
         return self.conv(self.conv1x1(torch.cat([x2, x1], dim=1)))
 
 

@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mm_unet_tpu_torch.models.layers import Conv2d, GroupNorm, init_flax_style
-from mm_unet_tpu_torch.models.pvtv2 import PVTv2, pyramid
+from mm_unet_tpu_torch.models.pvtv2 import pvt_v2_b3, pyramid
 
 
 def _up_nearest(x: torch.Tensor, hw) -> torch.Tensor:
@@ -105,7 +105,7 @@ class TB(nn.Module):
 
     def __init__(self, generator: torch.Generator):
         super().__init__()
-        self.backbone = nn.Sequential(*PVTv2(depths=(3, 4, 18, 3), generator=generator).children())
+        self.backbone = nn.Sequential(*pvt_v2_b3(generator).children())
         self.LE = nn.ModuleList([nn.Sequential(RB(dim, 64), RB(64, 64))
                                  for dim in (64, 128, 320, 512)])
         self.SFA = nn.ModuleList([nn.Sequential(RB(128, 64), RB(64, 64)) for _ in range(3)])

@@ -234,12 +234,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return torch.matmul(att.softmax(dim=-1), v)
 
 
-def channels_last(fn, x: torch.Tensor) -> torch.Tensor:
-    """fn over the channel axis of NCHW `x` (a `Linear`, a `LayerNorm`):
-    NHWC in, NCHW out."""
-    return nhwc_to_nchw(fn(nchw_to_nhwc(x)))
-
-
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last (channel) axis, reduced in f32 (f64 inputs in
     f64) and returned in the promotion of input and weight dtypes (flax's

@@ -131,7 +131,7 @@ class PVTv2(nn.Module):
     def __init__(self, in_channels: int = 3, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  num_heads: Sequence[int] = (1, 2, 5, 8),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4), depths: Sequence[int] = (3, 4, 6, 3),
-                 sr_ratios: Sequence[int] = (8, 4, 2, 1), drop_path: float = 0.0,
+                 sr_ratios: Sequence[int] = (8, 4, 2, 1),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cin = in_channels
@@ -139,7 +139,7 @@ class PVTv2(nn.Module):
             self.add_module(f"patch_embed{i + 1}", OverlapPatchEmbed(
                 cin, embed_dims[i], 7 if i == 0 else 3, 4 if i == 0 else 2))
             self.add_module(f"block{i + 1}", nn.ModuleList([
-                PVTBlock(embed_dims[i], num_heads[i], mlp_ratios[i], sr_ratios[i], drop_path)
+                PVTBlock(embed_dims[i], num_heads[i], mlp_ratios[i], sr_ratios[i])
                 for _ in range(depths[i])]))
             self.add_module(f"norm{i + 1}", LayerNorm(embed_dims[i], eps=1e-6))
             cin = embed_dims[i]
