@@ -46,8 +46,9 @@ class ConfigDict(dict):
 def _scalar(text: str):
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
         return text[1:-1]
-    if text in ("true", "True", "TRUE", "false", "False", "FALSE"):
-        return text.lower() == "true"
+    if text.lower() in ("true", "false", "yes", "no", "on", "off") and text in (
+            text.lower(), text.capitalize(), text.upper()):  # YAML 1.1's booleans
+        return text.lower() in ("true", "yes", "on")
     if text in ("", "~", "null", "Null", "NULL"):
         return None
     if _INT.match(text):

@@ -277,7 +277,7 @@ def test_load_config_reads_config_yml_without_pyyaml(monkeypatch):
     from mm_unet_tpu_torch.utils.config import load_yaml_subset
 
     tiny = TINY_YAML.format(name="t", epochs=2, resume="false")
-    for text in ((ROOT / "config.yml").read_text(), tiny, "a:\n  b: [1, 'x', 2.5, true, null]\n"):
+    for text in ((ROOT / "config.yml").read_text(), tiny, "a:\n  b: [1, 'x', 2.5, true, null, On, no, nO]\n  c:\n  d: 1e-3\n"):
         assert load_yaml_subset(text) == yaml.safe_load(text)
     monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises ImportError
     assert load_config(str(ROOT / "config.yml")) == yaml.safe_load((ROOT / "config.yml").read_text())
