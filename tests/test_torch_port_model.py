@@ -209,7 +209,7 @@ def test_convert_is_strict_and_inverts_the_tables(tiny):
 
 def test_give_model_names_roadmap_for_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        give_model("UNet")
+        give_model("DuAT")
 
 
 def test_kernel_launch_counts_per_forward():

@@ -1,8 +1,8 @@
 """The port's PVTv2 and FCBFormer against the JAX package, on the CPU.
 
-PVTv2 alone, at its published widths and depths (1, 1, 1, 1), 2x3x64x64:
-the four maps in f32, then, in float64, every parameter gradient of
-sum(map * dout) over the four maps for seeded douts. FCBFormer whole (its
+PVTv2 alone, at its published widths and depths (1, 1, 1, 1): the four
+maps at 2x3x64x64 in f32, then, in float64 at 2x3x32x32, every parameter
+gradient of sum(map * dout) over the four maps for seeded douts. FCBFormer whole (its
 widths and PVTv2-b3's 28 blocks are fixed), in the forms of
 `test_torch_port_zoo_conv.py`: eval logits in f32 at 2x3x64x64, one
 train-mode pass in float64 with every parameter gradient (the PVT's drop
@@ -49,6 +49,11 @@ def test_pvtv2_matches_jax():
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g.permute(0, 2, 3, 1).numpy(), np.asarray(w), LOGITS_TOL, f"map {i}")
 
+    # the gradients at 32² (maps 8, 4, 2, 1): XLA's float64 convolutions on
+    # the CPU take 8.4 s at 64², 2.4 at 32²
+    x, _ = inputs(27, size=32)
+    want = jax.eval_shape(lambda v_, x_: jm.apply(v_, x_), v,
+                          jnp.asarray(x.transpose(0, 2, 3, 1)))
     rng = np.random.default_rng(22)
     douts = [rng.standard_normal(np.shape(w)) for w in want]
 
