@@ -58,6 +58,17 @@ F64_TOL = 2e-6
 GRAD_FLOOR = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's side of these tests runs on one thread: in the parallel
+    test run, torch's thread pool contending with the other workers' made
+    PVTv2's 0.2 s float64 pass take 10 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class FlaxWith:
     """`flax.linen` with some of its names replaced: set as a JAX model
     module's `nn` (monkeypatch) to pin one of its functions for a test."""

@@ -27,7 +27,7 @@ from mm_unet_tpu_torch.models.fcbformer import FCBFormer
 from mm_unet_tpu_torch.models.pvtv2 import PVTv2
 from mm_unet_tpu_torch.utils.convert import jax_grads_to_torch
 from test_torch_port_zoo_conv import (F64_TOL, LOGITS_TOL, check_eval, check_train, grad_errors,
-                                      inputs, jax_variables)
+                                      inputs, jax_variables, one_torch_thread)  # noqa: F401
 from torch_port_harness import assert_close, load_torch
 
 DEPTHS = (1, 1, 1, 1)

@@ -36,7 +36,7 @@ from mm_unet_tpu_torch.models.transunet import TransUNet
 from mm_unet_tpu_torch.models.unetr import UNETR
 from mm_unet_tpu_torch.train.losses import dice_focal_loss
 from test_torch_port_zoo_conv import (F64_TOL, FlaxWith, check_eval, check_train, exact_gelu,
-                                      inputs, jax_variables)
+                                      inputs, jax_variables, one_torch_thread)  # noqa: F401
 from torch_port_harness import assert_close, load_torch
 
 UNETR_TINY = dict(img_size=64, feature_size=16, hidden_size=96, mlp_dim=192, num_heads=4)
