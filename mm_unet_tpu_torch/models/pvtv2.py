@@ -11,8 +11,9 @@ Sequential as the reference does (`models.py:129`), and `pyramid` runs
 either form. Parameter names are the reference's (`pvt_v2.py`:
 patch_embed1.proj, block1.0.attn.q, block1.0.attn.sr, block1.0.mlp.dwconv.dwconv,
 norm1), as `mm_unet_tpu.utils.torch_convert.pvtv2_pairs` tabulates them.
-`pvt_v2_b3` loads no `.pth`: the zoo starts from random weights, as the
-JAX package does without the file.
+`pvt_v2_b2` (DuAT, PVT_CASCADE, BMANet) and `pvt_v2_b3` (FCBFormer) load
+no `.pth`: the zoo starts from random weights, as the JAX package does
+without the file.
 """
 
 from __future__ import annotations
@@ -147,6 +148,10 @@ class PVTv2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list:
         return pyramid(list(self.children()), x)
+
+
+def pvt_v2_b2(generator: Optional[torch.Generator] = None, in_channels: int = 3) -> PVTv2:
+    return PVTv2(in_channels, depths=(3, 4, 6, 3), generator=generator)
 
 
 def pvt_v2_b3(generator: Optional[torch.Generator] = None) -> PVTv2:
