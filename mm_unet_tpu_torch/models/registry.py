@@ -1,9 +1,10 @@
 """Model factory (counterpart of `mm_unet_tpu/models/registry.py`): by name
 (`give_model`) or by `config.finetune.model_choose` with the keyword
 arguments of the config's `models.<name>.branch1` or `branch5` section
-(`give_model_from_config`). MM_Net, dkDualNet, UM_Net, UNet, ConvUNeXt
-(also as ConvUNetXt), CFPNet, UNETR, TransUNet, SWINUNETR and FCBFormer
-are ported; the rest of the zoo is queued in ROADMAP.md."""
+(`give_model_from_config`). Every name of the JAX package's registry is
+ported: MM_Net, dkDualNet, UM_Net, HWAUNETR, UNet, ConvUNeXt (also as
+ConvUNetXt), CFPNet, UNETR, TransUNet, SWINUNETR, FCBFormer, DuAT,
+PVT_CASCADE, CVC_UNETR, BMANet, CFANet and VANet."""
 
 from __future__ import annotations
 
@@ -15,20 +16,29 @@ import torch.nn as nn
 
 
 def _constructors() -> dict:
+    from mm_unet_tpu_torch.models.bmanet import BMANet
+    from mm_unet_tpu_torch.models.cfanet import CFANet
     from mm_unet_tpu_torch.models.cfpnet import CFPNet
     from mm_unet_tpu_torch.models.convunext import ConvUNeXt
+    from mm_unet_tpu_torch.models.cvc_unetr import CVC_Unetr
     from mm_unet_tpu_torch.models.dkdualnet import dkDualNet
+    from mm_unet_tpu_torch.models.duat import DuAT
     from mm_unet_tpu_torch.models.fcbformer import FCBFormer
+    from mm_unet_tpu_torch.models.hwaunetr import HWAUNETR
     from mm_unet_tpu_torch.models.mm_unet import MM_Net
+    from mm_unet_tpu_torch.models.pvt_cascade import PVT_CASCADE
     from mm_unet_tpu_torch.models.swin_unetr import SwinUNETR
     from mm_unet_tpu_torch.models.transunet import TransUNet
     from mm_unet_tpu_torch.models.um_net import UM_Net
     from mm_unet_tpu_torch.models.unet import UNet
     from mm_unet_tpu_torch.models.unetr import UNETR
+    from mm_unet_tpu_torch.models.vanet import VANet
 
-    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet, "UM_Net": UM_Net, "UNet": UNet,
-            "ConvUNeXt": ConvUNeXt, "ConvUNetXt": ConvUNeXt, "CFPNet": CFPNet, "UNETR": UNETR,
-            "TransUNet": TransUNet, "SWINUNETR": SwinUNETR, "FCBFormer": FCBFormer}
+    return {"MM_Net": MM_Net, "dkDualNet": dkDualNet, "UM_Net": UM_Net, "HWAUNETR": HWAUNETR,
+            "UNet": UNet, "ConvUNeXt": ConvUNeXt, "ConvUNetXt": ConvUNeXt, "CFPNet": CFPNet,
+            "UNETR": UNETR, "TransUNet": TransUNet, "SWINUNETR": SwinUNETR,
+            "FCBFormer": FCBFormer, "DuAT": DuAT, "PVT_CASCADE": PVT_CASCADE,
+            "CVC_UNETR": CVC_Unetr, "BMANet": BMANet, "CFANet": CFANet, "VANet": VANet}
 
 
 def give_model(name: str, device: torch.device | str = "cuda",
@@ -51,12 +61,21 @@ def give_model(name: str, device: torch.device | str = "cuda",
     `block_num`, `patch_dim`, `class_num`; SWINUNETR `img_size`,
     `in_channels`, `out_channels`, `feature_size`, `depths`, `num_heads`,
     `window`, `use_checkpoint`, `spatial_dims`; FCBFormer `size`,
-    `num_class`, `model_dir`."""
+    `num_class`, `model_dir`; HWAUNETR `in_chans`, `out_chans`,
+    `kernel_sizes`, `depths`, `dims`, `num_slices_list`, `hidden_size`;
+    DuAT `in_channels`, `out_channels`, `dim`, `dims`, `model_dir`;
+    PVT_CASCADE `n_class` (input channels), `o_class`, `model_dir`;
+    CVC_UNETR `in_channels`, `out_channels`, `dims`, `out_dim`,
+    `kernel_size`, `mlp_ratio`, `model_dir`; BMANet `channel` (its width),
+    `out_channel`, `model_dir`; CFANet `in_class`, `out_class`, `channel`;
+    VANet `cfg`, `embed_dims`, `depths`, `mlp_ratios`, `num_heads`,
+    `strides`, `proj_drop`, `attn_drop`, `drop_path`, `num_class`. A name
+    outside the JAX package's registry raises NotImplementedError."""
     models = _constructors()
     if name not in models:
         raise NotImplementedError(
-            f"model {name!r} is not ported to mm_unet_tpu_torch yet; see ROADMAP.md, "
-            "queue 1 (modules to port)"
+            f"model {name!r} is not ported to mm_unet_tpu_torch: the JAX package's registry "
+            f"lacks it too (it has {sorted(models)}); see ROADMAP.md"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -78,8 +97,11 @@ _CONFIG_KEYS = {
 _BRANCH1_ONLY = {"UM_Net", "MM_Net", "dkDualNet", "FRUNet", "ConvUNetXt", "UNet3Plus", "ATTUNet"}
 # config keys the JAX MM_Net accepts for config parity and never reads
 _UNUSED = {"MM_Net": ("out_indices", "heads")}
-# the zoo's own names for config.yml's `num_classes`
-_CLASS_COUNT_KEYS = ("class_num", "classes", "out_channels", "num_class")
+# the zoo's own names for config.yml's `num_classes`, never an input
+# channel count (PVT_CASCADE's `n_class`, CFANet's `in_class`, HWAUNETR's
+# `in_chans`) nor a width (BMANet's `channel`)
+_CLASS_COUNT_KEYS = ("class_num", "classes", "out_channels", "num_class", "o_class",
+                     "out_channel", "out_class", "out_chans")
 # the constructor argument that fixes the input size, where one does
 _INPUT_SIZE_KEYS = {"TransUNet": "img_dim", "UNETR": "img_size"}
 
@@ -97,7 +119,8 @@ def _model_kwargs(config, name: str) -> dict:
 def _constructor_kwargs(config, name: str, kwargs: dict) -> dict:
     """config.yml's sections name the class count `num_classes` for every
     model; the zoo's constructors call it `class_num`, `classes`,
-    `out_channels` or `num_class` (with those sections the JAX package's
+    `out_channels`, `num_class`, `o_class`, `out_channel`, `out_class` or
+    `out_chans` (with those sections the JAX package's
     TransUNet, UNETR, SWINUNETR, FCBFormer and CFPNet raise a TypeError).
     Rename it to the constructor's own, unless the section gives that too;
     and give TransUNet and UNETR the dataset's image size where the

@@ -259,8 +259,8 @@ def test_give_model_from_config():
     model = give_model_from_config(config, "cpu", torch.Generator().manual_seed(0))
     assert type(model).__name__ == "MM_Net" and not model.training
     assert len(model.encoder2) == 1 and model.num_slices_list == (4, 4, 4, 4)
-    config.finetune.model_choose = "DuAT"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    config.finetune.model_choose = "FRUNet"  # in neither package's registry
+    with pytest.raises(NotImplementedError, match="not ported.*JAX package's registry lacks"):
         give_model_from_config(config, "cpu")
     if not torch.cuda.is_available():
         config.finetune.model_choose = "MM_Net"
@@ -320,7 +320,43 @@ def test_constructor_kwargs_rename_the_class_count_once():
     assert (_constructor_kwargs(config, "FCBFormer", {"num_classes": 3, "num_class": 2})
             == {"num_classes": 3, "num_class": 2})
     assert _constructor_kwargs(config, "TransUNet", {"img_dim": 64}) == {"img_dim": 64}
-    assert _constructor_kwargs(config, "DuAT", {"num_classes": 3}) == {"num_classes": 3}
+    assert _constructor_kwargs(config, "DuAT", {"num_classes": 3}) == {"out_channels": 3}
+    # each model's own class-count keyword, never an input count or a width
+    for name, own in (("PVT_CASCADE", "o_class"), ("BMANet", "out_channel"),
+                      ("CFANet", "out_class"), ("HWAUNETR", "out_chans"),
+                      ("CVC_UNETR", "out_channels"), ("VANet", "num_class")):
+        assert _constructor_kwargs(config, name, {"num_classes": 3}) == {own: 3}, name
+    assert (_constructor_kwargs(config, "FRUNet", {"num_classes": 3}) == {"num_classes": 3})
+
+
+@pytest.mark.parametrize("name, inputs", [("PVT_CASCADE", "n_class"), ("CFANet", "in_class"),
+                                          ("HWAUNETR", "in_chans"), ("BMANet", "channel")])
+def test_constructor_kwargs_leave_input_counts_and_widths(name, inputs):
+    """PVT_CASCADE's `n_class`, CFANet's `in_class` and HWAUNETR's
+    `in_chans` count input channels, BMANet's `channel` is its width: a
+    section's values for them pass through, and `num_classes` goes to the
+    class count alone."""
+    from mm_unet_tpu_torch.models.registry import _CLASS_COUNT_KEYS, _constructor_kwargs
+
+    config = load_config(str(ROOT / "config.yml"))
+    assert inputs not in _CLASS_COUNT_KEYS
+    got = _constructor_kwargs(config, name, {"num_classes": 2, inputs: 5})
+    assert got[inputs] == 5 and 2 in got.values() and "num_classes" not in got
+
+
+def test_constructors_cover_the_jax_registry():
+    """The port builds every name the JAX package's registry holds (its 18,
+    with ConvUNetXt beside ConvUNeXt and CVC_UNETR for the class
+    CVC_Unetr)."""
+    from mm_unet_tpu.models.registry import MODEL_REGISTRY, give_model as jax_give_model
+    from mm_unet_tpu_torch.models.registry import _constructors
+
+    jconfig = jax_load_config(str(ROOT / "config.yml"))
+    jconfig.finetune.model_choose = "UNet"
+    jax_give_model(jconfig)  # imports every model module, which registers it
+    assert len(MODEL_REGISTRY) == 18
+    assert sorted(_constructors()) == sorted(MODEL_REGISTRY)
+    assert _constructors()["CVC_UNETR"].__name__ == "CVC_Unetr"
 
 
 # --- the entry points ---------------------------------------------------------

@@ -98,7 +98,7 @@ def test_zoo_modules_never_import_jax():
     code = (
         "import sys\n"
         "from mm_unet_tpu_torch.models.registry import _constructors\n"
-        "assert len(_constructors()) == 11\n"
+        "assert len(_constructors()) == 18\n"
         "import mm_unet_tpu_torch.models.pvtv2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'mm_unet_tpu')]\n"
