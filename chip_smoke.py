@@ -116,11 +116,26 @@ any failure ends the run non-zero):
    the card, each giving (1, 1, 512, 512) logits for a 512² image; (d)
    `cli.train.main` for 2 epochs and `cli.test.main` with `model_choose:
    UNet` at config.yml's DRIVE settings, as phase 9 (a) and (d) check
-   MM_Net's. It prints its own seconds and a summary line.
+   MM_Net's. It prints its own seconds and a summary line;
+12. the JAX registry's last seven models (HWAUNETR; DuAT, PVT_CASCADE,
+   CVC_UNETR, BMANet, CFANet and VANet), f32, at their constructors' widths,
+   seeded weights: (a) as 11 (a), card against CPU at 128² in f32 and f64
+   (HWAUNETR's Mambas in f32 in both, its own limits); (b) as 11 (b), each
+   one's validation, serving and 4 train steps at batch 8, HWAUNETR at
+   DRIVE's 512² and the six polyp models at 352², with exact launches of
+   kernels 1-8 on every path: 12 kernel-1 launches per HWAUNETR forward and
+   12 kernel-2 launches per train step, none for the other six; (c)
+   kernels 1/2 alone at every shape of HWAUNETR's train step, timed and
+   held to `mamba_fused_scan_ref` (`phase12 mamba_fused_scan_*_step`),
+   every fused-scan call of a 2x3x512² train-mode pass held to it
+   (`FusedCalls`), and HWAUNETR's two Mamba routes against each other
+   (`mamba_routes_check`); (e) all 18 names of the registry built through
+   `give_model` on the card. A summary line gathers the numbers.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
-on the paths above; kernel 1's entry carries the LM's under `lm`), and
+on the paths above; kernel 1's entry carries the LM's under `lm`, rows 1-2
+UM_Net's under `um_net` and HWAUNETR's under `hwaunetr`), and
 `{"ok": true, "device": {...}}`. Without a CUDA device it exits
 non-zero before printing any result. It imports nothing of JAX or of the
 JAX package.
@@ -232,7 +247,15 @@ LM_SAMPLING = dict(temperature=8.0, top_k=50, top_p=0.9)
 # polyp sets' 352² (config.yml's Kvasir_SEG / CVC_ClinicDB), the rest at
 # DRIVE's 512² (`bench.py`'s shape), batch 8
 ZOO = ("UNet", "ConvUNeXt", "CFPNet", "UNETR", "TransUNet", "SWINUNETR", "FCBFormer")
-ZOO_DATA = {"FCBFormer": ("Kvasir_SEG", 352)}
+# phase 12: the JAX registry's last seven models, which config.yml has no
+# section for, at their constructors' widths. HWAUNETR takes RGB images and
+# one-class masks (`ZOO12_KWARGS`) and trains and serves at DRIVE's 512²
+# (its total stride is 64 and its v3 slices, 64, 32, 16 and 8, divide 128²,
+# 64², 32² and 16²); the six polyp models at the Kvasir-SEG / CVC-ClinicDB
+# protocol of config.yml, 352²; batch 8
+ZOO12 = ("HWAUNETR", "DuAT", "PVT_CASCADE", "CVC_UNETR", "BMANet", "CFANet", "VANet")
+ZOO12_KWARGS = {"HWAUNETR": dict(in_chans=3, out_chans=1)}
+ZOO_DATA = {"FCBFormer": ("Kvasir_SEG", 352), **{n: ("Kvasir_SEG", 352) for n in ZOO12[1:]}}
 CONFIG_MODELS = ("MM_Net", "UM_Net") + ZOO
 ZOO_TRAIN_STEPS = 4
 ZOO_SERVING_REPS = 5
@@ -252,6 +275,21 @@ ZOO_SERVING_REPS = 5
 ZOO_CPU_TOL = 5e-5
 ZOO_F64_TOL = 1e-5
 ZOO_GRAD_FLOOR = 1e-3
+# phase 12 (a) holds the six polyp models to the zoo's limits. HWAUNETR's
+# Mambas run kernels 1/2 on the card and their plain versions on the CPU,
+# in f32 also in the f64 pass (the kernels take f32 and bf16 streams; the
+# port's plain version computes in f32 too): its logits per element in f32
+# and in f64, and its f64 pass's gradients per tensor (ZOO_GRAD_FLOOR),
+# carry the two scans' f32 summation orders through the unscaled
+# softmax(qᵀk) of four MFA blocks (largest sound readings: PR 13's chip run,
+# PERF.md §6)
+HWA_CPU_TOL = 2e-4
+HWA_F64_TOL = 2e-4
+HWA_GRAD_TOL = 1e-3
+# HWAUNETR's two Mamba routes on the card (`mamba_routes_check`, f32,
+# 2x3x512²): the logits per element and every gradient per tensor
+HWA_ROUTE_LOGITS_TOL = MM_ROUTE_LOGITS_TOL
+HWA_ROUTE_TOL = MM_ROUTE_TOL
 
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
@@ -473,11 +511,15 @@ def bn_fed_biases(model: torch.nn.Module) -> set:
     deviation, which removes a per-channel scale but for the norm's eps: their
     gradient is zero in exact arithmetic (the scale's, to ~eps / variance)
     and rounding noise in f32. A DSConv ends in a GroupNorm as an MMConv
-    does."""
+    does. An InstanceNorm removes each sample's per-channel shift in any
+    mode: so do the biases of the convs that HWAUNETR's GMP blocks
+    normalise."""
     from mm_unet_tpu_torch.models.dsconv import DSConv
+    from mm_unet_tpu_torch.models.hwaunetr import GMPBlock
     from mm_unet_tpu_torch.models.mm_unet import MMConv
 
-    names = set()
+    names = {f"{prefix}.{conv}.bias" for prefix, m in model.named_modules()
+             if isinstance(m, GMPBlock) for conv in ("proj", "proj2", "proj3", "proj4")}
     for prefix, m in model.named_modules():
         if isinstance(m, torch.nn.Sequential):
             for i, (conv, norm) in enumerate(zip(m, list(m)[1:])):
@@ -942,16 +984,21 @@ def fwd_blocks_per_sm(D: int, R: int, N: int, dtype) -> list:
     return list(out)
 
 
-def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[list, list]:
+def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
+                       check: bool = False) -> tuple[list, list]:
     """Kernels 1 and 2 alone at every shape that a train step gives them
     (from `mamba_step_shapes`): kernel 1 as a forward-only call of
     `mamba_fused_scan` under `torch.no_grad()`, kernel 2 as
     `torch.autograd.grad` through it; each the mean of 3 calls after one
     (`ms`, CUDA events, host included) and the device time of its kernels in
     3 more (`kernel_ms`); random inputs made on the card. Kernel 1's lines
-    also carry the resident blocks per SM of its two chunk passes. Timing
-    only: the comparisons are phase 1's. Returns (forward, backward) records."""
-    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    also carry the resident blocks per SM of its two chunk passes. With
+    `check`, each shape's output is also held to `mamba_fused_scan_ref`'s on
+    the same inputs (TOL) and each input's gradient to autograd of it
+    (BWD_TOL), per element as `rel_err`, and a miss fails the run after
+    every shape is printed; without it the comparisons are phase 1's.
+    Returns (forward, backward) records."""
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan, mamba_fused_scan_ref
 
     dev = torch.device("cuda")
     cgen = torch.Generator(device=dev).manual_seed(seed)
@@ -959,7 +1006,7 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[li
     def rn(*s, scale=1.0):
         return torch.randn(*s, generator=cgen, device=dev) * scale
 
-    fwd, bwd = [], []
+    fwd, bwd, failed = [], [], []
     for (B, D, R, N, W, L, rev, dt), calls in sorted(shapes.items()):
         dtype = getattr(torch, dt)
         xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
@@ -969,22 +1016,39 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1") -> tuple[li
         with torch.no_grad():
             ms = cuda_ms(call, reps=3)
             kms = kernel_device_ms(call, FWD_KERNELS)
+            if check:
+                err, rel, ok = compare(call(), mamba_fused_scan_ref(x, *w, reverse=rev), dtype)
+                checked = dict(max_abs_err=err, rel_err=rel, tol=TOL[dtype], ok=ok)
         bms, by = bound(*mamba_work(B, D, L, N, R, W, x.element_size(), False))
         rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
-                   blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype))
+                   blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype),
+                   **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
+        failed += [] if rec.get("ok", True) else [rec]
 
         dout = rn(B, 1, D, L).to(dtype)
-        out, live, _ = grads_of(lambda *a: mamba_fused_scan(*a, reverse=rev), [x, *w], dout)
+        out, live, got = grads_of(lambda *a: mamba_fused_scan(*a, reverse=rev), [x, *w], dout)
+        if check:
+            want = grads_of(lambda *a: mamba_fused_scan_ref(*a, reverse=rev), [x, *w], dout)[2]
+            errs, ok = compare_grads(got, want, FusedCalls.NAMES, BWD_TOL[dtype])
+            checked = dict(max_abs_err=max(e for e, _ in errs.values()),
+                           rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype],
+                           errs=errs, ok=ok)
+            del want
+        del got
         call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
         ms = cuda_ms(call, reps=3)
         bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
         rec = dict(shape, ms=ms, kernel_ms=kernel_device_ms(call, BWD_KERNELS), bound_ms=bms,
-                   bound_by=by, launches_per_step=calls)
+                   bound_by=by, launches_per_step=calls, **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
+        failed += [] if rec.get("ok", True) else [rec]
         del xz, x, w, dout, out, live
+    if failed:
+        raise SystemExit(f"{tag} FAILED: {len(failed)} fused-scan step shapes disagree with "
+                         "mamba_fused_scan_ref")
     return fwd, bwd
 
 
@@ -2469,21 +2533,32 @@ def zoo_config(name: str, size: int | None = None):
 
 
 def zoo_model(name: str, seed: int, device: str, size: int | None = None):
-    from mm_unet_tpu_torch.models import give_model_from_config
+    """`name` with seeded weights: a model of config.yml as the file sets it
+    (`zoo_config`), a phase-12 model (no section) at its constructor's
+    widths with `ZOO12_KWARGS`."""
+    from mm_unet_tpu_torch.models import give_model, give_model_from_config
 
-    return give_model_from_config(zoo_config(name, size), device,
-                                  torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    if name in ZOO12:
+        return give_model(name, device, gen, **ZOO12_KWARGS.get(name, {}))
+    return give_model_from_config(zoo_config(name, size), device, gen)
 
 
 def zoo_forward_flops(name: str, seed: int) -> int:
     """Operations of one forward of `name` at its protocol size, batch 8,
     counted by `torch.utils.flop_counter` on the meta device (convolutions
     and matmuls; norms and elementwise operations are not counted). A train
-    step is taken as three forwards."""
+    step is taken as three forwards. Mambas take their plain route there
+    (the kernels take no meta tensors), whose projections are counted."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from mm_unet_tpu_torch.models.mamba import Mamba
 
     size = ZOO_DATA.get(name, ("DRIVE", 512))[1]
     model = zoo_model(name, seed, "cpu").to("meta").eval()
+    for m in model.modules():
+        if isinstance(m, Mamba):
+            m.scan_impl = "ref"
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         model(torch.zeros(8, 3, size, size, device="meta"))
     return counter.get_total_flops()
@@ -2502,26 +2577,34 @@ def kernel_launches() -> dict:
             **{f"{fn.__name__}_bwd": fn.bwd_launches for fn in kernel_counters()}}
 
 
-def phase11_card_vs_cpu(seed: int) -> dict:
+def phase11_card_vs_cpu(seed: int, names: tuple = ZOO, tag: str = "phase11") -> dict:
     """(a) Each zoo model at 128² (TransUNet and UNETR built for it), the
     same weights on the card and the CPU: the eval logits at 1x3x128² in
     f32 and in f64, per element; then, in f64, every parameter gradient of
-    one train-mode pass (DiceFocal) at 2x3x128², per tensor."""
-    from mm_unet_tpu_torch.models.layers import Dropout
+    one train-mode pass (DiceFocal, dropout and drop path at the identity)
+    at 2x3x128², per tensor. A model's Mambas compute in f32 in the f64
+    passes (the kernels' stream dtypes), and HWAUNETR is held to its own
+    limits (HWA_*_TOL)."""
+    from mm_unet_tpu_torch.models.layers import Dropout, DropPath
+    from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.train.losses import dice_focal_loss
 
     rng = np.random.default_rng(seed + 11)
     x = torch.from_numpy(rng.standard_normal((2, 3, 128, 128)))
     y = torch.from_numpy((rng.random((2, 1, 128, 128)) < 0.2).astype(np.float64))
     out = {}
-    for name in ZOO:
+    for name in names:
         t0 = time.perf_counter()
         models = {"cpu": zoo_model(name, seed, "cpu", size=128)}
         models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
+        hwa = name == "HWAUNETR"
         logits = {}
         for dtype in (torch.float32, torch.float64):
             for model in models.values():
                 model.to(dtype)
+                for m in model.modules():
+                    if isinstance(m, Mamba):
+                        m.dtype = torch.float32 if dtype == torch.float64 else None
             with torch.inference_mode():
                 got, want = (models[dev](x[:1].to(dev, dtype)).cpu() for dev in ("cuda", "cpu"))
             logits[str(dtype)[6:]] = (*rel_err(got, want), bool(torch.isfinite(got).all()))
@@ -2529,38 +2612,47 @@ def phase11_card_vs_cpu(seed: int) -> dict:
         for dev, model in models.items():
             model.train()
             for m in model.modules():
-                if isinstance(m, Dropout):
+                if isinstance(m, (Dropout, DropPath)):
                     m.eval()
             dice_focal_loss(model(x.to(dev)), y.to(dev)).backward()
             grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
-        bad, worst = tensor_grad_errs(grads["cuda"], grads["cpu"], ZOO_F64_TOL, set(),
+        grad_tol = HWA_GRAD_TOL if hwa else ZOO_F64_TOL
+        bad, worst = tensor_grad_errs(grads["cuda"], grads["cpu"], grad_tol, set(),
                                       ZOO_GRAD_FLOOR)
-        f32_tol = None if name == "TransUNet" else ZOO_CPU_TOL
+        f32_tol = None if name == "TransUNet" else HWA_CPU_TOL if hwa else ZOO_CPU_TOL
+        f64_tol = HWA_F64_TOL if hwa else ZOO_F64_TOL
         ok = (all(finite for *_, finite in logits.values())
               and (f32_tol is None or logits["float32"][1] <= f32_tol)
-              and logits["float64"][1] <= ZOO_F64_TOL and bad == 0)
+              and logits["float64"][1] <= f64_tol and bad == 0)
         out[name] = dict(logits_rel_err_f32=logits["float32"][1],
                          logits_rel_err_f64=logits["float64"][1],
                          grad_worst_f64=worst[0]["relative"])
-        print(f"phase11 {name} card vs cpu " + json.dumps(dict(
+        print(f"{tag} {name} card vs cpu " + json.dumps(dict(
             shape=[1, 1, 128, 128], logits={k: dict(max_abs_err=e, rel_err=r)
                                            for k, (e, r, _) in logits.items()},
-            tol=dict(float32=f32_tol, float64=ZOO_F64_TOL), grads=len(grads["cpu"]),
-            grads_out_of_tol=bad, grad_tol=ZOO_F64_TOL, grad_floor=ZOO_GRAD_FLOOR,
+            tol=dict(float32=f32_tol, float64=f64_tol), grads=len(grads["cpu"]),
+            grads_out_of_tol=bad, grad_tol=grad_tol, grad_floor=ZOO_GRAD_FLOOR,
             grad_worst=worst, seconds=time.perf_counter() - t0, ok=ok)), flush=True)
         if not ok:
-            raise SystemExit(f"phase11 FAILED: {name} on the card disagrees with the CPU")
+            raise SystemExit(f"{tag} FAILED: {name} on the card disagrees with the CPU")
     return out
 
 
-def phase11_path(name: str, seed: int) -> dict:
+def phase11_path(name: str, seed: int, tag: str = "phase11", exact: bool = False) -> dict:
     """(b) `name` at full width on the card: `val_one_epoch` over sliding
     windows of its protocol size (overlap 0.5, two synthetic batches of 8,
     f32 predictor), then the f32 predictor's images/s over
     ZOO_SERVING_REPS batches; ZOO_TRAIN_STEPS `train_step`s at batch 8
     (finite losses, the last below the first), train images/s over the
     steps after the first, peak memory, and one profiled step's device ms
-    and busy share."""
+    and busy share.
+
+    With `exact`, kernels 1-8's launches are counted on each path and must
+    be what the model's `kernel_launches_per_forward` implies (none for a
+    model without one): one forward per validation batch and per served
+    batch, one forward and one backward per train step; forward hooks on
+    the Mambas during the first step read the shapes kernels 1/2 are given
+    (`mamba_step_shapes`, returned as `mamba_shapes` with the launches)."""
     from mm_unet_tpu_torch.data import synthetic_batch
     from mm_unet_tpu_torch.evaluate import val_one_epoch
     from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer
@@ -2573,6 +2665,22 @@ def phase11_path(name: str, seed: int) -> dict:
     flop = zoo_forward_flops(name, seed)
     model = zoo_model(name, seed, "cuda")
     params = sum(p.numel() for p in model.parameters())
+    counters = {"mamba_fused_scan": "mamba_fused_scan", "tap_conv": "tap_conv",
+                "selective_scan": "selective_scan_chunked"}
+    per_forward = (model.kernel_launches_per_forward()
+                   if hasattr(model, "kernel_launches_per_forward") else {})
+
+    def reset():
+        for fn in kernel_counters():
+            fn.launches = fn.bwd_launches = 0
+
+    def want(n_fwd, n_bwd):
+        return {**{fn: per_forward.get(k, 0) * n_fwd for k, fn in counters.items()},
+                **{f"{fn}_bwd": per_forward.get(k, 0) * n_bwd for k, fn in counters.items()}}
+
+    launches, launches_ok = {}, True
+    if exact:
+        reset()
     batches = [synthetic_batch(8, size, seed + 9), synthetic_batch(8, size, seed + 10)]
     inferer = SlidingWindowInferer(roi_size=(size, size), overlap=0.5)
     loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
@@ -2583,17 +2691,25 @@ def phase11_path(name: str, seed: int) -> dict:
         return logits[-1]
 
     f1, metric, losses = val_one_epoch(model, loss_fn, infer, batches, build_metrics())
+    if exact:
+        launches["val"] = kernel_launches()
+        launches_ok = launches["val"] == want(len(batches), 0)
     finite = all(bool(torch.isfinite(t).all()) for t in logits)
     shapes_ok = [list(t.shape) for t in logits] == [list(b["label"].shape) for b in batches]
     x = torch.from_numpy(batches[0]["image"]).cuda()
     predictor = make_predictor(model)
     inferer(x, predictor)  # warm-up
+    if exact:
+        reset()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(ZOO_SERVING_REPS):
         served = inferer(x, predictor)
     torch.cuda.synchronize()
     serve_rate = x.shape[0] * ZOO_SERVING_REPS / (time.perf_counter() - t1)
+    if exact:
+        launches["serve"] = kernel_launches()
+        launches_ok = launches_ok and launches["serve"] == want(ZOO_SERVING_REPS, 0)
     finite = finite and bool(torch.isfinite(served).all()) and all(np.isfinite(losses))
 
     batch = synthetic_batch(8, size, seed + 2)
@@ -2602,18 +2718,33 @@ def phase11_path(name: str, seed: int) -> dict:
     config = {"trainer": dict(lr=1e-3, warmup=1, num_epochs=2, steps_per_epoch=10**6,
                               weight_decay=0.05, optimizer="adamw")}
     state = create_train_state(model, config, seed=seed)
+    mamba_shapes, hooks = mamba_step_shapes(model) if exact else ({}, [])
     torch.cuda.reset_peak_memory_stats()
-    step_losses, times = [], []
+    step_losses, times, step_launches = [], [], []
     for _ in range(ZOO_TRAIN_STEPS):
+        if exact:
+            reset()
         t1 = time.perf_counter()
         scalars, _ = train_step(state, x, y, loss_fn)
         step_losses.append(float(scalars["total_loss"]))  # waits for the step
         times.append(time.perf_counter() - t1)
+        for h in hooks:  # the shapes of one step
+            h.remove()
+        hooks = []
+        if exact:
+            step_launches.append(kernel_launches())
+            launches_ok = launches_ok and step_launches[-1] == want(1, 1)
     peak = torch.cuda.max_memory_allocated()
+    if exact:
+        launches["train"] = {k: sum(c[k] for c in step_launches) for k in step_launches[0]}
+        launches_ok = launches_ok and sum(mamba_shapes.values()) == per_forward.get(
+            "mamba_fused_scan", 0)
     train_rate = x.shape[0] * (ZOO_TRAIN_STEPS - 1) / sum(times[1:])
     prof = profile_step(f"zoo {name} train", lambda: train_step(state, x, y, loss_fn))
     ok = (finite and shapes_ok and all(map(math.isfinite, step_losses))
-          and step_losses[-1] < step_losses[0])
+          and step_losses[-1] < step_losses[0] and launches_ok)
+    if exact:
+        launches = dict(per_forward=per_forward, by_path=launches, ok=launches_ok)
     result = dict(size=size, batch=8, params=params, forward_flop=flop,
                   train_tflop_per_s=3 * flop * (ZOO_TRAIN_STEPS - 1) / sum(times[1:]) / 1e12,
                   serve_tflop_per_s=flop / 8 * serve_rate / 1e12, val_losses=losses,
@@ -2622,11 +2753,12 @@ def phase11_path(name: str, seed: int) -> dict:
                   step_seconds=times, train_images_per_sec=train_rate,
                   max_memory_allocated_bytes=peak, device_ms=prof["device_ms"],
                   wall_ms=prof["wall_ms"], busy_share=prof["busy_share"],
-                  device_launches=prof["launches"], seconds=time.perf_counter() - t0)
-    print(f"phase11 {name} path " + json.dumps(dict(**result, card=smi(), ok=ok)), flush=True)
+                  device_launches=prof["launches"], seconds=time.perf_counter() - t0,
+                  **({"kernel_launches": launches} if exact else {}))
+    print(f"{tag} {name} path " + json.dumps(dict(**result, card=smi(), ok=ok)), flush=True)
     if not ok:
-        raise SystemExit(f"phase11 FAILED: {name}'s serving or training path")
-    return result
+        raise SystemExit(f"{tag} FAILED: {name}'s serving or training path")
+    return dict(result, mamba_shapes=mamba_shapes) if exact else result
 
 
 def phase11_config_models(seed: int) -> None:
@@ -2723,6 +2855,75 @@ def phase11_zoo(seed: int) -> None:
         models={name: {**card[name], **{k: paths[name][k] for k in keys}} for name in ZOO},
         cli_train_images_per_sec=cli["train_images_per_sec"],
         seconds=time.perf_counter() - t0, card=smi())), flush=True)
+
+
+def phase12_hwaunetr_kernels(seed: int) -> None:
+    """(c) HWAUNETR (f32, full width, `ZOO12_KWARGS`) at 2x3x512²: every
+    fused-scan call of one train-mode pass held to `mamba_fused_scan_ref` at
+    its own inputs and output gradient (`FusedCalls`), then its two Mamba
+    routes against each other (`mamba_routes_check`: kernels 1/2 against
+    kernels 5/6, logits and every gradient)."""
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.train.losses import dice_focal_loss
+
+    model = zoo_model("HWAUNETR", seed, "cuda")
+    batch = synthetic_batch(2, 512, seed + 13)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    with FusedCalls() as calls:
+        dice_focal_loss(model.train()(x), y).backward()
+        torch.cuda.synchronize()
+    calls_ok = calls.check("phase12 hwaunetr fused-scan calls") and len(calls.calls) == 12
+    model.zero_grad(set_to_none=True)
+    routes_ok = mamba_routes_check("phase12 hwaunetr routes", model, x, y, HWA_ROUTE_LOGITS_TOL,
+                                   HWA_ROUTE_TOL, {})
+    if not (calls_ok and routes_ok):
+        raise SystemExit("phase12 FAILED: HWAUNETR's fused scans or its two Mamba routes")
+
+
+def phase12_registry(seed: int) -> None:
+    """(e) Every name of the JAX package's registry (18, the CPU tests hold
+    the names to it) built through `give_model` on the card, at its
+    constructor's defaults: every parameter and buffer on the card."""
+    from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.models.registry import _constructors
+
+    built = {}
+    for name in sorted(_constructors()):
+        model = give_model(name, "cuda", torch.Generator().manual_seed(seed))
+        tensors = [*model.parameters(), *model.buffers()]
+        built[name] = dict(params=sum(p.numel() for p in model.parameters()),
+                           on_card=all(t.is_cuda for t in tensors), eval=not model.training)
+        del model, tensors
+    ok = len(built) == 18 and all(b["on_card"] and b["eval"] for b in built.values())
+    print("phase12 registry " + json.dumps(dict(models=built, ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase12 FAILED: a name of the registry does not build on the card")
+
+
+def phase12_zoo(seed: int) -> dict:
+    """Phase 12, (a)-(e): the JAX registry's last seven models. (a) card vs
+    CPU (`phase11_card_vs_cpu`); (b) each one's serving and training path
+    (`phase11_path`) with exact launches of kernels 1-8: HWAUNETR's 12
+    kernel-1 launches per forward and 12 kernel-2 launches per train step,
+    (d) none for the other six; (c) kernels 1/2 at every shape of
+    HWAUNETR's train step against the plain version (`phase1_step_shapes`,
+    checked), every fused-scan call of a train-mode pass, its two routes;
+    (e) the registry. Returns HWAUNETR's launches and step shapes' records
+    for the `kernels` line."""
+    t0 = time.perf_counter()
+    card = phase11_card_vs_cpu(seed, ZOO12, "phase12")
+    paths = {name: phase11_path(name, seed, "phase12", exact=True) for name in ZOO12}
+    hwa = paths["HWAUNETR"]
+    fwd, bwd = phase1_step_shapes(hwa["mamba_shapes"], seed, "phase12", check=True)
+    phase12_hwaunetr_kernels(seed)
+    phase12_registry(seed)
+    keys = ("serve_images_per_sec_f32", "train_images_per_sec", "max_memory_allocated_bytes",
+            "device_ms", "busy_share", "forward_flop", "train_tflop_per_s")
+    print("phase12 zoo summary " + json.dumps(dict(
+        models={name: {**card[name], **{k: paths[name][k] for k in keys}} for name in ZOO12},
+        hwaunetr_launches=hwa["kernel_launches"], seconds=time.perf_counter() - t0,
+        card=smi())), flush=True)
+    return {"launches": hwa["kernel_launches"], "fwd_steps": fwd, "bwd_steps": bwd}
 
 
 _KERNEL_GROUPS = (
@@ -2829,6 +3030,8 @@ def main() -> None:
     print(f"phase10 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase11_zoo(args.seed)
     print(f"phase11 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    hwa = phase12_zoo(args.seed)
+    print(f"phase12 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -2847,6 +3050,9 @@ def main() -> None:
                    if lm["launches"][name] == 0]
     unlaunched += [f"{name} (the LM's route-b forward)" for name in ("selective_scan",)
                    if lm["route_b_launches"][name] == 0]
+    unlaunched += [f"{name} (HWAUNETR {path})" for path, names in (
+        ("serve", ("mamba_fused_scan",)), ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd")))
+        for name in names if hwa["launches"]["by_path"][path][name] == 0]
     if unlaunched:
         raise SystemExit(f"chip_smoke: the main paths launched no {unlaunched}")
 
@@ -2883,6 +3089,18 @@ def main() -> None:
             "launches_by_path": {"serve": um["serve"].get(name, 0), "train": um["train"][name]},
             **step_sums(steps, keys, extra)}}
 
+    def hwa_entry(name, steps):
+        # HWAUNETR's launches of this kernel, and its times and bounds at
+        # the shapes one HWAUNETR train step gives it
+        part = "bwd" if name.endswith("_bwd") else "fwd"
+        per = hwa["launches"]["per_forward"]["mamba_fused_scan"]
+        return {"hwaunetr": {
+            "launches_per_forward": per if part == "fwd" else 0,
+            "launches_per_train_step": per,
+            "launches_by_path": {p: hwa["launches"]["by_path"][p][name]
+                                 for p in ("val", "serve", "train")},
+            **step_sums(steps)}}
+
     tap_keys = ("H", "W", "C", "F", "K")
     scan_keys = ("Dm", "G", "L")
     scan_parts = tuple(f"{k}_kernel_ms" for k in SCAN_BWD_GROUPS)
@@ -2893,11 +3111,13 @@ def main() -> None:
         summary("mamba_fused_scan", "mm_unet_tpu_torch/csrc/mamba_fused_fwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:240", mm, **step_sums(fwd_steps),
                 **um_entry("mamba_fused_scan", um_fwd),
+                **hwa_entry("mamba_fused_scan", hwa["fwd_steps"]),
                 lm=dict(lm["kernel"], launches_per_scoring_forward=lm["launches"][
                     "mamba_fused_scan"])),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps),
-                **um_entry("mamba_fused_scan_bwd", um_bwd)),
+                **um_entry("mamba_fused_scan_bwd", um_bwd),
+                **hwa_entry("mamba_fused_scan_bwd", hwa["bwd_steps"])),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm,
                 **step_sums(tap_fwd_steps, tap_keys), **um_entry("tap_conv", um_tap_fwd, tap_keys)),
