@@ -120,8 +120,8 @@ any failure ends the run non-zero):
 12. the JAX registry's last seven models (HWAUNETR; DuAT, PVT_CASCADE,
    CVC_UNETR, BMANet, CFANet and VANet), f32, at their constructors' widths,
    seeded weights: (a) as 11 (a), card against CPU at 128² in f32 and f64
-   (HWAUNETR's Mambas in f32 in both, its own limits); (b) as 11 (b), each
-   one's validation, serving and 4 train steps at batch 8, HWAUNETR at
+   (HWAUNETR's Mambas in f32 in both); (b) as 11 (b), each
+   one's validation, serving and 10 train steps at batch 8, HWAUNETR at
    DRIVE's 512² and the six polyp models at 352², with exact launches of
    kernels 1-8 on every path: 12 kernel-1 launches per HWAUNETR forward and
    12 kernel-2 launches per train step, none for the other six; (c)
@@ -259,6 +259,11 @@ ZOO_DATA = {"FCBFormer": ("Kvasir_SEG", 352), **{n: ("Kvasir_SEG", 352) for n in
 CONFIG_MODELS = ("MM_Net", "UM_Net") + ZOO
 ZOO_TRAIN_STEPS = 4
 ZOO_SERVING_REPS = 5
+# phase 12 takes 10 steps at config.yml's lr 1e-3: from its seeded init,
+# PVT_CASCADE's loss climbs over its first three steps (1.02 to 2.08 on the
+# card, PR 13) and falls below the first from the seventh (1.06, then 0.95
+# at step 8 and 0.81 at step 12 in a CPU run of the same init)
+ZOO12_TRAIN_STEPS = 10
 # card vs CPU at 128²: the eval logits per element as `rel_err` (read at
 # f32 resolution), in f32 (largest sound reading 1.0e-5, UNETR) and in
 # f64 (5.3e-8, TransUNet; 0 for the rest); every parameter
@@ -275,17 +280,12 @@ ZOO_SERVING_REPS = 5
 ZOO_CPU_TOL = 5e-5
 ZOO_F64_TOL = 1e-5
 ZOO_GRAD_FLOOR = 1e-3
-# phase 12 (a) holds the six polyp models to the zoo's limits. HWAUNETR's
+# Phase 12 (a) holds the last seven models to the same limits. HWAUNETR's
 # Mambas run kernels 1/2 on the card and their plain versions on the CPU,
-# in f32 also in the f64 pass (the kernels take f32 and bf16 streams; the
-# port's plain version computes in f32 too): its logits per element in f32
-# and in f64, and its f64 pass's gradients per tensor (ZOO_GRAD_FLOOR),
-# carry the two scans' f32 summation orders through the unscaled
-# softmax(qᵀk) of four MFA blocks (largest sound readings: PR 13's chip run,
-# PERF.md §6)
-HWA_CPU_TOL = 2e-4
-HWA_F64_TOL = 2e-4
-HWA_GRAD_TOL = 1e-3
+# in f32 also in the f64 passes (the kernels take f32 and bf16 streams; the
+# plain version computes in f32 too); even so its readings stay far inside
+# them (f32 logits 1.9e-6, f64 logits 7.8e-8, f64 gradients 9.5e-8 of
+# their tensor; the six others up to 4.1e-6, 0 and 1.1e-7)
 # HWAUNETR's two Mamba routes on the card (`mamba_routes_check`, f32,
 # 2x3x512²): the logits per element and every gradient per tensor
 HWA_ROUTE_LOGITS_TOL = MM_ROUTE_LOGITS_TOL
@@ -2583,8 +2583,7 @@ def phase11_card_vs_cpu(seed: int, names: tuple = ZOO, tag: str = "phase11") -> 
     f32 and in f64, per element; then, in f64, every parameter gradient of
     one train-mode pass (DiceFocal, dropout and drop path at the identity)
     at 2x3x128², per tensor. A model's Mambas compute in f32 in the f64
-    passes (the kernels' stream dtypes), and HWAUNETR is held to its own
-    limits (HWA_*_TOL)."""
+    passes (the kernels' stream dtypes)."""
     from mm_unet_tpu_torch.models.layers import Dropout, DropPath
     from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.train.losses import dice_focal_loss
@@ -2597,7 +2596,6 @@ def phase11_card_vs_cpu(seed: int, names: tuple = ZOO, tag: str = "phase11") -> 
         t0 = time.perf_counter()
         models = {"cpu": zoo_model(name, seed, "cpu", size=128)}
         models["cuda"] = copy.deepcopy(models["cpu"]).cuda()
-        hwa = name == "HWAUNETR"
         logits = {}
         for dtype in (torch.float32, torch.float64):
             for model in models.values():
@@ -2616,33 +2614,32 @@ def phase11_card_vs_cpu(seed: int, names: tuple = ZOO, tag: str = "phase11") -> 
                     m.eval()
             dice_focal_loss(model(x.to(dev)), y.to(dev)).backward()
             grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
-        grad_tol = HWA_GRAD_TOL if hwa else ZOO_F64_TOL
-        bad, worst = tensor_grad_errs(grads["cuda"], grads["cpu"], grad_tol, set(),
+        bad, worst = tensor_grad_errs(grads["cuda"], grads["cpu"], ZOO_F64_TOL, set(),
                                       ZOO_GRAD_FLOOR)
-        f32_tol = None if name == "TransUNet" else HWA_CPU_TOL if hwa else ZOO_CPU_TOL
-        f64_tol = HWA_F64_TOL if hwa else ZOO_F64_TOL
+        f32_tol = None if name == "TransUNet" else ZOO_CPU_TOL
         ok = (all(finite for *_, finite in logits.values())
               and (f32_tol is None or logits["float32"][1] <= f32_tol)
-              and logits["float64"][1] <= f64_tol and bad == 0)
+              and logits["float64"][1] <= ZOO_F64_TOL and bad == 0)
         out[name] = dict(logits_rel_err_f32=logits["float32"][1],
                          logits_rel_err_f64=logits["float64"][1],
                          grad_worst_f64=worst[0]["relative"])
         print(f"{tag} {name} card vs cpu " + json.dumps(dict(
             shape=[1, 1, 128, 128], logits={k: dict(max_abs_err=e, rel_err=r)
                                            for k, (e, r, _) in logits.items()},
-            tol=dict(float32=f32_tol, float64=f64_tol), grads=len(grads["cpu"]),
-            grads_out_of_tol=bad, grad_tol=grad_tol, grad_floor=ZOO_GRAD_FLOOR,
+            tol=dict(float32=f32_tol, float64=ZOO_F64_TOL), grads=len(grads["cpu"]),
+            grads_out_of_tol=bad, grad_tol=ZOO_F64_TOL, grad_floor=ZOO_GRAD_FLOOR,
             grad_worst=worst, seconds=time.perf_counter() - t0, ok=ok)), flush=True)
         if not ok:
             raise SystemExit(f"{tag} FAILED: {name} on the card disagrees with the CPU")
     return out
 
 
-def phase11_path(name: str, seed: int, tag: str = "phase11", exact: bool = False) -> dict:
+def phase11_path(name: str, seed: int, tag: str = "phase11", exact: bool = False,
+                 steps: int = ZOO_TRAIN_STEPS) -> dict:
     """(b) `name` at full width on the card: `val_one_epoch` over sliding
     windows of its protocol size (overlap 0.5, two synthetic batches of 8,
     f32 predictor), then the f32 predictor's images/s over
-    ZOO_SERVING_REPS batches; ZOO_TRAIN_STEPS `train_step`s at batch 8
+    ZOO_SERVING_REPS batches; `steps` `train_step`s at batch 8
     (finite losses, the last below the first), train images/s over the
     steps after the first, peak memory, and one profiled step's device ms
     and busy share.
@@ -2721,7 +2718,7 @@ def phase11_path(name: str, seed: int, tag: str = "phase11", exact: bool = False
     mamba_shapes, hooks = mamba_step_shapes(model) if exact else ({}, [])
     torch.cuda.reset_peak_memory_stats()
     step_losses, times, step_launches = [], [], []
-    for _ in range(ZOO_TRAIN_STEPS):
+    for _ in range(steps):
         if exact:
             reset()
         t1 = time.perf_counter()
@@ -2739,14 +2736,14 @@ def phase11_path(name: str, seed: int, tag: str = "phase11", exact: bool = False
         launches["train"] = {k: sum(c[k] for c in step_launches) for k in step_launches[0]}
         launches_ok = launches_ok and sum(mamba_shapes.values()) == per_forward.get(
             "mamba_fused_scan", 0)
-    train_rate = x.shape[0] * (ZOO_TRAIN_STEPS - 1) / sum(times[1:])
+    train_rate = x.shape[0] * (steps - 1) / sum(times[1:])
     prof = profile_step(f"zoo {name} train", lambda: train_step(state, x, y, loss_fn))
     ok = (finite and shapes_ok and all(map(math.isfinite, step_losses))
           and step_losses[-1] < step_losses[0] and launches_ok)
     if exact:
         launches = dict(per_forward=per_forward, by_path=launches, ok=launches_ok)
     result = dict(size=size, batch=8, params=params, forward_flop=flop,
-                  train_tflop_per_s=3 * flop * (ZOO_TRAIN_STEPS - 1) / sum(times[1:]) / 1e12,
+                  train_tflop_per_s=3 * flop * (steps - 1) / sum(times[1:]) / 1e12,
                   serve_tflop_per_s=flop / 8 * serve_rate / 1e12, val_losses=losses,
                   metrics={k: (v if v == v else None) for k, v in metric.items()},
                   serve_images_per_sec_f32=serve_rate, train_losses=step_losses,
@@ -2912,7 +2909,8 @@ def phase12_zoo(seed: int) -> dict:
     for the `kernels` line."""
     t0 = time.perf_counter()
     card = phase11_card_vs_cpu(seed, ZOO12, "phase12")
-    paths = {name: phase11_path(name, seed, "phase12", exact=True) for name in ZOO12}
+    paths = {name: phase11_path(name, seed, "phase12", exact=True, steps=ZOO12_TRAIN_STEPS)
+             for name in ZOO12}
     hwa = paths["HWAUNETR"]
     fwd, bwd = phase1_step_shapes(hwa["mamba_shapes"], seed, "phase12", check=True)
     phase12_hwaunetr_kernels(seed)

@@ -101,9 +101,10 @@ class MFABlock(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         out, q, k, v = self.mamba(self.norm(x.flatten(2).transpose(1, 2)))
-        # (B, d_inner, L) each: one head whose features are the channels
-        att = F.scaled_dot_product_attention(*(t.transpose(1, 2)[:, None] for t in (q, k, v)),
-                                             scale=1.0)
+        # (B, d_inner, L) each: one head whose features are the channels,
+        # contiguous (SDPA's fused backends need a unit-stride last dim)
+        att = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2).contiguous()[:, None] for t in (q, k, v)), scale=1.0)
         out_a = self.fussion1(att[:, 0].transpose(1, 2).reshape(b, -1, h, w))
         out_m = out.transpose(1, 2).reshape(b, c, h, w)
         return self.fussion2(torch.cat([out_a, out_m.to(out_a.dtype)], dim=1)) + x
