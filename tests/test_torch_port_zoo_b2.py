@@ -60,9 +60,9 @@ def check(jm, tm_ctor, pairs, seed, what, tm_prepare=None):
 
 
 def test_duat_matches_jax(one_block_a_stage, monkeypatch):
-    """The unpatched JAX logits lie DUAT_AA_DIST of their largest from the
-    patched ones (the antialiased downsample), against 1e-7 between the
-    port and the patched JAX."""
+    """The unpatched JAX logits lie 1.1e-2 of their largest from the
+    patched ones (the antialiased downsample), against LOGITS_TOL between
+    the port and the patched JAX."""
     jm = jduat.DuAT(out_channels=1)
     x, _ = inputs(40, size=32)
     v = jax_variables(jm, x, seed=41)
