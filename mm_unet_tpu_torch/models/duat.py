@@ -8,7 +8,8 @@ Resizes are bilinear with half-pixel centres, `F.interpolate(...,
 align_corners=False)`, antialiasing off, as in the torch reference. Only
 SBA resizes down (1/4 to 1/8, `duat.py:113`): there `jax.image.resize`
 antialiases, the reference does not, and the port follows the reference
-(ROADMAP.md queue 3). Everywhere else the two agree.
+(ROADMAP.md queue 3; `layers.resize_bilinear_torch`). Everywhere else
+the two agree.
 
 Module and parameter names are the torch reference's, as
 `mm_unet_tpu.utils.torch_convert.duat_pairs` tabulates them (backbone,
@@ -25,14 +26,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mm_unet_tpu_torch.models.layers import BatchNorm2d, Conv2d, LayerNorm, init_flax_style
+from mm_unet_tpu_torch.models.layers import (
+    BatchNorm2d,
+    Conv2d,
+    LayerNorm,
+    init_flax_style,
+    resize_bilinear_torch as resize,
+)
 from mm_unet_tpu_torch.models.pvtv2 import pvt_v2_b2
-
-
-def _resize(x: torch.Tensor, hw) -> torch.Tensor:
-    if tuple(x.shape[2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
 
 
 class BasicConv2d(nn.Module):
@@ -130,9 +131,9 @@ class SBA(nn.Module):
         lf, hf = self.fc1(lf), self.fc2(hf)
         g_l, g_h = torch.sigmoid(lf), torch.sigmoid(hf)
         lf, hf = self.d_in1(lf), self.d_in2(hf)
-        lf = lf + lf * g_l + (1 - g_l) * _resize(g_h * hf, lf.shape[2:])
-        hf = hf + hf * g_h + (1 - g_h) * _resize(g_l * lf, hf.shape[2:])  # down: 1/4 -> 1/8
-        return self.conv(torch.cat([_resize(hf, lf.shape[2:]), lf], dim=1))
+        lf = lf + lf * g_l + (1 - g_l) * resize(g_h * hf, lf.shape[2:])
+        hf = hf + hf * g_h + (1 - g_h) * resize(g_l * lf, hf.shape[2:])  # down: 1/4 -> 1/8
+        return self.conv(torch.cat([resize(hf, lf.shape[2:]), lf], dim=1))
 
 
 class DuAT(nn.Module):
@@ -158,14 +159,14 @@ class DuAT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c1, c2, c3, c4 = self.backbone(x)
-        _c4 = _resize(self.GLSA_c4(c4), c3.shape[2:])
+        _c4 = resize(self.GLSA_c4(c4), c3.shape[2:])
         _c3 = self.GLSA_c3(c3)
         _c2 = self.GLSA_c2(c2)
-        out1 = self.fuse2(torch.cat([_resize(_c4, c2.shape[2:]), _resize(_c3, c2.shape[2:]), _c2],
+        out1 = self.fuse2(torch.cat([resize(_c4, c2.shape[2:]), resize(_c3, c2.shape[2:]), _c2],
                                     dim=1))
         lf = self.L_feature(c1)
-        hf = _resize(self.fuse(torch.cat([_c4, _c3], dim=1)), c2.shape[2:])
+        hf = resize(self.fuse(torch.cat([_c4, _c3], dim=1)), c2.shape[2:])
         out2 = self.SBA(hf, lf)
-        out1 = _resize(out1, (out1.shape[2] * 8, out1.shape[3] * 8))
-        out2 = _resize(out2, (out2.shape[2] * 4, out2.shape[3] * 4))
+        out1 = resize(out1, (out1.shape[2] * 8, out1.shape[3] * 8))
+        out2 = resize(out2, (out2.shape[2] * 4, out2.shape[3] * 4))
         return out1 + out2

@@ -86,6 +86,15 @@ def resize_linear(x: torch.Tensor, out_hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
+def resize_bilinear_torch(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """NCHW bilinear resize with half-pixel centres and no antialiasing,
+    up or down: the torch reference's `F.interpolate(..., "bilinear")`
+    (the JAX package's `layers.resize_bilinear_torch`)."""
+    if tuple(x.shape[2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+
+
 def _rdtype(x: torch.Tensor) -> torch.dtype:
     """The dtype a norm reduces in: f32, or f64 for an f64 input."""
     return torch.float64 if x.dtype == torch.float64 else torch.float32

@@ -43,6 +43,7 @@ from mm_unet_tpu_torch.models.layers import (
     Linear,
     init_flax_style,
     resize_bilinear_align_corners,
+    resize_bilinear_torch,
 )
 
 
@@ -57,12 +58,6 @@ def _grid(x: torch.Tensor, hgt: int, wdt: int) -> torch.Tensor:
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(2).transpose(1, 2)
-
-
-def _resize(x: torch.Tensor, hw) -> torch.Tensor:
-    if tuple(x.shape[2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
 
 
 class ConvProj(nn.Module):
@@ -110,7 +105,8 @@ class CvTAttention(nn.Module):
         v = self.proj_v(_tokens(v)).view(b, -1, nh, hd).transpose(1, 2)
         att = (torch.matmul(q, k.transpose(-2, -1)) * self.dim ** -0.5).softmax(dim=-1)
         if r is not None:
-            r0, r1 = _tokens(_resize(r, (hgt, wdt))), _tokens(_resize(r, (hk, wk)))
+            r0 = _tokens(resize_bilinear_torch(r, (hgt, wdt)))
+            r1 = _tokens(resize_bilinear_torch(r, (hk, wk)))
             guide = torch.matmul(r0, r1.transpose(1, 2)).abs()[:, None] + 1.0
             att = self.alpha * (guide / guide.amax(dim=3, keepdim=True)) * att
         out = torch.matmul(self.attn_drop(att), v).transpose(1, 2).reshape(b, n, self.dim)
