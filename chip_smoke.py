@@ -888,8 +888,8 @@ def kernel_device_ms(fn, fragments: tuple, reps: int = 3) -> float:
     torch.profiler over `reps` calls: without the host's share, which
     decides `cuda_ms` at small shapes. Each kernel's time is its mean over
     the launches the profiler recorded, which need not be all of them; a
-    window in which it recorded none of them is profiled again (up to three
-    windows)."""
+    window in which it recorded none of them is profiled again (up to six
+    windows; late in a long run it has recorded none in three)."""
     return kernel_device_ms_by(fn, {"all": fragments}, reps)["all"]
 
 
@@ -902,7 +902,7 @@ def kernel_device_ms_by(fn, groups: dict, reps: int = 3, summed: tuple = ()) -> 
     from torch.profiler import ProfilerActivity, profile
 
     ms = {}
-    for _ in range(3):
+    for _ in range(6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1017,7 +1017,9 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
     `torch.autograd.grad` through it; each the mean of 3 calls after one
     (`ms`, CUDA events, host included) and the device time of its kernels in
     3 more (`kernel_ms`); random inputs made on the card. Kernel 1's lines
-    also carry the resident blocks per SM of its two chunk passes. With
+    also carry the resident blocks per SM of its two chunk passes. Where
+    the profiler records none of a kernel's launches, `kernel_ms` is the
+    events time and the line says so (`kernel_ms_by`). With
     `check`, each shape's output is also held to `mamba_fused_scan_ref`'s on
     the same inputs (TOL) and each input's gradient to autograd of it
     (BWD_TOL), per element as `rel_err`, and a miss fails the run after
@@ -1045,7 +1047,9 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
                 err, rel, ok = compare(call(), mamba_fused_scan_ref(x, *w, reverse=rev), dtype)
                 checked = dict(max_abs_err=err, rel_err=rel, tol=TOL[dtype], ok=ok)
         bms, by = bound(*mamba_work(B, D, L, N, R, W, x.element_size(), False))
-        rec = dict(shape, ms=ms, kernel_ms=kms, bound_ms=bms, bound_by=by, launches_per_step=calls,
+        rec = dict(shape, ms=ms, kernel_ms=kms or ms,
+                   kernel_ms_by="profiler" if kms else "events",
+                   bound_ms=bms, bound_by=by, launches_per_step=calls,
                    blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype),
                    **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
@@ -1064,9 +1068,11 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
         del got
         call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
         ms = cuda_ms(call, reps=3)
+        kms = kernel_device_ms(call, BWD_KERNELS)
         bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
-        rec = dict(shape, ms=ms, kernel_ms=kernel_device_ms(call, BWD_KERNELS), bound_ms=bms,
-                   bound_by=by, launches_per_step=calls, **(checked if check else {}))
+        rec = dict(shape, ms=ms, kernel_ms=kms or ms, kernel_ms_by="profiler" if kms else "events",
+                   bound_ms=bms, bound_by=by, launches_per_step=calls,
+                   **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         failed += [] if rec.get("ok", True) else [rec]
