@@ -48,10 +48,6 @@ def _act(shallow: bool) -> nn.Module:
     return nn.GELU() if shallow else nn.SiLU()
 
 
-def _instance_norm(dim: int) -> nn.Module:
-    return nn.InstanceNorm2d(dim, eps=1e-5, affine=False)
-
-
 class MlpChannel(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int, shallow: bool = True):
         super().__init__()
@@ -73,12 +69,11 @@ class GMPBlock(nn.Module):
         self.proj2 = Conv2d(dim, dim, 3, padding=1)
         self.proj3 = Conv2d(dim, dim, 1)
         self.proj4 = Conv2d(dim, dim, 1)
-        self.norm = _instance_norm(dim)
         self.act = _act(shallow)
 
     def forward(self, x):
         def cna(conv, v):
-            return self.act(self.norm(conv(v)))
+            return self.act(F.instance_norm(conv(v), eps=1e-5))
 
         x1 = cna(self.proj2, cna(self.proj, x))
         return cna(self.proj4, x1 + cna(self.proj3, x)) + x
@@ -141,12 +136,12 @@ class HWABlock(nn.Module):
 
 class TransposedConvLayer(nn.Module):
     """r x r stride-r transposed conv, then a 1x1 transposed conv over
-    [upsampled, skip] and GroupNorm(1)."""
+    [upsampled, skip] (the skip as wide as the output) and GroupNorm(1)."""
 
-    def __init__(self, dim_in: int, dim_skip: int, dim_out: int, r: int):
+    def __init__(self, dim_in: int, dim_out: int, r: int):
         super().__init__()
         self.transposed1 = ConvTranspose2d(dim_in, dim_out, r, stride=r)
-        self.transposed2 = ConvTranspose2d(dim_out + dim_skip, dim_out, 1)
+        self.transposed2 = ConvTranspose2d(2 * dim_out, dim_out, 1)
         self.norm = GroupNorm(1, dim_out)
 
     def forward(self, x, skip):
@@ -161,13 +156,13 @@ class Encoder(nn.Module):
         for i, (ks, dim) in enumerate(zip(kernel_sizes, dims)):
             conv = Conv2d(cin, dim, ks, stride=ks)
             self.downsample_layers.append(
-                nn.Sequential(conv) if i == 0 else nn.Sequential(_instance_norm(cin), conv))
+                nn.Sequential(conv) if i == 0
+                else nn.Sequential(nn.InstanceNorm2d(cin, eps=1e-5), conv))
             cin = dim
         self.gscs = nn.ModuleList([GMPBlock(d, shallow=i <= 1) for i, d in enumerate(dims)])
         self.stages = nn.ModuleList([
             nn.Sequential(*(MFABlock(d, ns, generator) for _ in range(n)))
             for d, ns, n in zip(dims, num_slices_list, depths)])
-        self.norms = nn.ModuleList([_instance_norm(d) for d in dims])
         self.mlps = nn.ModuleList([MlpChannel(d, 2 * d, shallow=i < 2)
                                    for i, d in enumerate(dims)])
 
@@ -175,11 +170,11 @@ class Encoder(nn.Module):
         """(the MFA outputs of the four stages, the last stage's MLP output):
         the MLP continues from the GMP block's output, not the MFA blocks'."""
         feats = []
-        for down, gsc, stage, norm, mlp in zip(self.downsample_layers, self.gscs, self.stages,
-                                               self.norms, self.mlps):
+        for down, gsc, stage, mlp in zip(self.downsample_layers, self.gscs, self.stages,
+                                         self.mlps):
             x = gsc(down(x))
             feats.append(stage(x))
-            x = mlp(norm(x))
+            x = mlp(F.instance_norm(x, eps=1e-5))
         return feats, x
 
 
@@ -196,7 +191,7 @@ class HWAUNETR(nn.Module):
         ups = ((hidden_size, dims[3], 2), (dims[3], dims[2], kernel_sizes[3]),
                (dims[2], dims[1], kernel_sizes[2]), (dims[1], dims[0], kernel_sizes[1]))
         for i, (cin, cout, r) in enumerate(ups):
-            self.add_module(f"TSconv{i + 1}", TransposedConvLayer(cin, cout, cout, r))
+            self.add_module(f"TSconv{i + 1}", TransposedConvLayer(cin, cout, r))
         self.SegHead = ConvTranspose2d(dims[0], out_chans, kernel_sizes[0],
                                        stride=kernel_sizes[0])
         init_flax_style(self, g)

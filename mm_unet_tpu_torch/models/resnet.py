@@ -95,7 +95,7 @@ class Bottle2neck(nn.Module):
                  base_width: int = 26, downsample: bool = False):
         super().__init__()
         width = int(planes * (base_width / 64.0))
-        self.width, self.scale, self.stride, self.stage = width, scale, stride, downsample
+        self.width, self.stride, self.stage = width, stride, downsample
         self.conv1 = Conv2d(inplanes, width * scale, 1, bias=False)
         self.bn1 = BatchNorm2d(width * scale)
         self.convs = nn.ModuleList([Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
