@@ -131,11 +131,34 @@ any failure ends the run non-zero):
    (`FusedCalls`), and HWAUNETR's two Mamba routes against each other
    (`mamba_routes_check`); (e) all 18 names of the registry built through
    `give_model` on the card. A summary line gathers the numbers.
+13. the parallel family (`mm_unet_tpu_torch/parallel/`) at world size 1
+   (one card holds one NCCL rank; the CPU tests hold the multi-rank
+   arithmetic) and the last tools: (a) `cli.train.main` under a one-rank
+   NCCL group with torchrun's environment, phase 9's configuration for one
+   epoch with ZeRO-1: its step losses against phase 9's, kernels 1-4
+   launched exactly half of phase 9's two epochs, train images/s and peak
+   memory beside phase 9's; then in a one-rank NCCL group (b) kernels 7/8
+   at the sequence-parallel scan's shapes (B 4, Dm 1536, N 16, L 2048 and
+   the 2-shard 1024) with the last state's gradient (kernel 8's `dlast`)
+   against autograd of the plain scan, kernel 8 timed with and without the
+   seed, `selective_scan_sp` through them and the public scan's last state
+   taking no gradient; (c) a tensor-parallel Block at d_model 768 on route
+   b (kernels 5/6 once each) against the unsplit one; (d)
+   `mixer_pipeline_forward` at one stage and 4 microbatches of 4 x 2048:
+   mamba-130m's 24 layers forward (24 kernel-1 launches per microbatch),
+   then 24 layers at d_model 384 forward and backward (24 kernel-1 and 24
+   kernel-2 launches per microbatch: kernel 2 takes no D past ~800),
+   against the model run straight through; (e) the Switch FFN
+   (d_model 768, 8 experts) split against unsplit, `cli.weight_test` on
+   UNet and CFPNet, `cli.visualize` on the DRIVE run's two validation
+   images.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
 on the paths above; kernel 1's entry carries the LM's under `lm`, rows 1-2
-UM_Net's under `um_net` and HWAUNETR's under `hwaunetr`), and
+UM_Net's under `um_net` and HWAUNETR's under `hwaunetr`, the parallel
+paths' launches under `parallel`, kernel 8's times with and without the
+last state's gradient under `sp_dlast`), and
 `{"ok": true, "device": {...}}`. Without a CUDA device it exits
 non-zero before printing any result. It imports nothing of JAX or of the
 JAX package.
@@ -2229,11 +2252,12 @@ def phase9_cli(seed: int) -> dict:
         ok = (rc == 0 and len(step_losses) == 4 and all(map(math.isfinite, step_losses))
               and all(files.values()) and meta("MM_Net", "checkpoint")["epoch"] == 2
               and seen["on_card"] and train == want_train and val == want_val)
+        peak_a = torch.cuda.max_memory_allocated()
         report("train", ok, rc=rc, step_losses=step_losses, files=files,
                best_meta=meta("MM_Net", "best") if files["best_meta.json"] else None,
                launches=dict(train=train, val=val), expected=dict(train=want_train, val=want_val),
                params_on_card=seen["on_card"], pipelines=sorted(seen["pipelines"]),
-               train_images_per_sec=rates, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               train_images_per_sec=rates, max_memory_allocated_bytes=peak_a,
                seconds=t_a, card=smi())
 
         # (b) resume to 3 epochs: the state as the file holds it, step 4, and
@@ -2320,7 +2344,8 @@ def phase9_cli(seed: int) -> dict:
         if synth_n is not None:
             os.environ["MMU_SYNTH_N"] = synth_n
         shutil.rmtree(work, ignore_errors=True)
-    return {"train": train, "val": val}
+    return {"train": train, "val": val, "step_losses": step_losses, "rates": rates,
+            "max_memory": peak_a}
 
 
 class StreamWaits:
@@ -2974,6 +2999,398 @@ _KERNEL_GROUPS = (
 )
 
 
+# phase 13: the parallel family at world size 1 on the card (one H100 holds
+# one NCCL rank; the multi-rank arithmetic is the CPU tests'), then the
+# last tools
+# (B, Dm, N, L) of the sequence-parallel scan: the LM's scoring width, the
+# whole sequence and one of two shards
+SP_SHAPES = ((4, 1536, 16, 2048), (4, 1536, 16, 1024))
+# phase 13 (a)'s step losses against phase 9's, relative: the first step
+# (the same arithmetic but BatchNorm's moments as sums over the group); the
+# second, after an AdamW step, where the bf16 trajectory is chaotic: phase
+# 9's own second loss moved by 3.3e-3 between two calls on the same code
+# (1.14873, 1.15249) and phase 13's read 8.2e-3 from it in its first call
+DP_LOSS_TOL = (1e-5, 2e-2)
+# the pipelined 24-layer LM against the same model run straight through:
+# microbatches of one sequence take other GEMM algorithms than a batch of
+# four; gradients as ||pp - seq|| / ||seq|| per tensor
+PP_TOL = LM_CPU_TOL
+PP_GRAD_TOL = 1e-3
+EP_SHAPE = (4, 512)  # tokens of the Switch FFN: batch, length
+EP_WIDTHS = dict(d_model=768, d_ff=3072, n_experts=8)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase13_dp(seed: int, p9: dict) -> dict:
+    """(a) `cli.train.main` under a one-rank NCCL group, the environment
+    torchrun gives a rank (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT): phase 9's configuration (config.yml's DRIVE run, MM_Net
+    bf16 with remat at 512², batch 4) for one epoch with ZeRO-1 on. Its
+    step losses against phase 9's first two, kernels 1-4 launched exactly
+    half of phase 9's two epochs, train images/s and peak memory beside
+    phase 9's. Returns the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mm_unet_tpu_torch.cli import train as cli_train
+    from mm_unet_tpu_torch.parallel.zero import ZeroAdamW
+
+    train_fn, val_fn = cli_train.train_one_epoch, cli_train.val_one_epoch
+    seen = {}
+
+    def counted_val(*args, **kwargs):
+        before = kernel_launches()
+        out = val_fn(*args, **kwargs)
+        seen["val"] = {k: v - before[k] for k, v in kernel_launches().items()}
+        return out
+
+    def seen_train(state, *args, **kwargs):
+        seen["zero1"] = isinstance(state.optimizer, ZeroAdamW)
+        seen["dp"] = None if state.dp is None else [state.dp.rank, state.dp.world]
+        seen["backend"] = dist.get_backend()
+        return train_fn(state, *args, **kwargs)
+
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in (*env, "MMU_SYNTH_N")}
+    home, work = os.getcwd(), tempfile.mkdtemp(prefix="mmu_phase13_")
+    os.chdir(work)
+    os.environ.pop("MMU_SYNTH_N", None)
+    os.environ.update(env)
+    try:
+        cfg = cli_config("MM_Net_dp", 1)
+        cfg.trainer.zero1 = True
+        cli_train.val_one_epoch, cli_train.train_one_epoch = counted_val, seen_train
+        for fn in kernel_counters():
+            fn.launches = fn.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli_train.main(cfg, "cuda")
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        total = kernel_launches()
+        events = run_scalars("MM_Net_dp")
+        files = sorted(os.listdir(os.path.join("model_store", "MM_Net_dp")))
+    finally:
+        cli_train.val_one_epoch, cli_train.train_one_epoch = val_fn, train_fn
+        os.chdir(home)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    val = seen["val"]
+    train = {k: v - val[k] for k, v in total.items()}
+    want_train = {k: p9["train"].get(k, 0) // 2 for k in train}
+    want_val = {k: p9["val"].get(k, 0) // 2 for k in val}
+    losses = [e["Train/total_loss"] for e in events if "Train/total_loss" in e]
+    rates = [e["Train/images_per_sec"] for e in events if "Train/images_per_sec" in e]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, p9["step_losses"])]
+    ok = (rc == 0 and seen["zero1"] and seen["dp"] == [0, 1] and seen["backend"] == "nccl"
+          and len(losses) == 2 and all(d <= t for d, t in zip(diffs, DP_LOSS_TOL))
+          and train == want_train and val == want_val and not dist.is_initialized()
+          and "checkpoint" in files)
+    print("phase13 dp " + json.dumps(dict(
+        rc=rc, zero1=seen["zero1"], rank_world=seen["dp"], backend=seen["backend"],
+        step_losses=losses, phase9_step_losses=p9["step_losses"][:2], rel_diffs=diffs,
+        tol=DP_LOSS_TOL, launches=dict(train=train, val=val),
+        expected=dict(train=want_train, val=want_val), files=files,
+        train_images_per_sec=rates, phase9_train_images_per_sec=p9["rates"],
+        max_memory_allocated_bytes=peak, phase9_max_memory_allocated_bytes=p9["max_memory"],
+        seconds=seconds, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase13 FAILED: dp")
+    return {"train": train, "val": val}
+
+
+def phase13_sp(seed: int) -> dict:
+    """(b) Kernels 7/8 at the sequence-parallel scan's shapes (SP_SHAPES):
+    the bare scan with its differentiable last state against autograd of
+    the plain scan, values and every gradient with a random gradient of the
+    last state (kernel 8's `dlast` seed), and kernel 8 alone with and
+    without the seed, in turns; then `selective_scan_sp` at world size 1
+    through them, and the public `selective_scan`'s last state, which takes
+    no gradient. Returns the records and the launches."""
+    import torch.nn.functional as F
+
+    from mm_unet_tpu_torch.ops import chunked_scan as cs
+    from mm_unet_tpu_torch.ops.selective_scan import selective_scan, selective_scan_ref
+    from mm_unet_tpu_torch.parallel.sp import selective_scan_sp
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    gen = torch.Generator().manual_seed(seed + 130)
+
+    def rn(*sh, scale=1.0):
+        return (torch.randn(*sh, generator=gen) * scale).to(dev)
+
+    recs, failed = [], []
+    for B, Dm, N, L in SP_SHAPES:
+        u, delta = rn(B, Dm, L), F.softplus(rn(B, Dm, L, scale=0.5) - 4.0)
+        A = -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(Dm, 1))
+        Bm, Cm, wy, wh = rn(B, N, L), rn(B, N, L), rn(B, Dm, L), rn(B, Dm, N)
+        ins = [t.clone().requires_grad_() for t in (u, delta, A, Bm, Cm)]
+        y, h = cs.selective_scan_chunked_last(*ins)
+        ((y * wy).sum() + (h * wh).sum()).backward()
+        ref = [t.clone().requires_grad_() for t in (u, delta, A, Bm, Cm)]
+        yr, hr = selective_scan_ref(*ref, return_last_state=True)
+        ((yr * wy).sum() + (hr * wh).sum()).backward()
+        torch.cuda.synchronize()
+        errs = {"y": rel_err(y, yr), "last": rel_err(h, hr)}
+        errs.update({f"d{n}": rel_err(a.grad, b.grad)
+                     for n, a, b in zip(("u", "delta", "A", "B", "C"), ins, ref)})
+        ok = (errs["y"][1] <= TOL[f32] and errs["last"][1] <= TOL[f32]
+              and all(e[1] <= BWD_TOL[f32] for k, e in errs.items() if k.startswith("d")))
+        del y, h, yr, hr, ins, ref
+
+        def plain():
+            p = [t.clone().requires_grad_() for t in (u, delta, A, Bm, Cm)]
+            a, b = selective_scan_ref(*p, return_last_state=True)
+            ((a * wy).sum() + (b * wh).sum()).backward()
+
+        plan = cs._plan(u, A, Bm, Cm)
+        with torch.no_grad():
+            _, state, dtsum, _ = cs._launch_fwd(u, delta, None, A, Bm, Cm, None, None, False,
+                                                True, plan)
+
+        def bwd(dlast):
+            return cs._launch_bwd(wy, u, delta, None, A, Bm, Cm, None, None, state, dtsum,
+                                  False, plan, dlast)
+
+        # in turns: without, with, with, without
+        t = [cuda_ms(lambda: bwd(None), reps=10), cuda_ms(lambda: bwd(wh), reps=10),
+             cuda_ms(lambda: bwd(wh), reps=10), cuda_ms(lambda: bwd(None), reps=10)]
+        nbytes, ops = scan_work(B, Dm, L, N, 1, 4, 4, 2, True)
+        bms, by = bound(nbytes + 4 * B * Dm * N, ops)
+        rec = dict(B=B, Dm=Dm, N=N, L=L, dtype="float32", max_abs_err=max(e[0] for e in errs.values()),
+                   rel_errs={k: e[1] for k, e in errs.items()}, tol=TOL[f32], bwd_tol=BWD_TOL[f32],
+                   bwd_ms_with_dlast=(t[1] + t[2]) / 2, bwd_ms_without_dlast=(t[0] + t[3]) / 2,
+                   turns_ms=t, plain_fwd_bwd_ms=cuda_ms(plain, reps=1), bound_ms=bms, bound_by=by)
+        print(f"phase13 sp kernel {json.dumps(dict(rec, card=smi(), ok=ok))}", flush=True)
+        recs.append(rec)
+        failed.extend([] if ok else [f"sp kernel L {L}"])
+        del state, dtsum
+
+    # selective_scan_sp at world size 1 through kernels 7/8, counted from zero
+    B, Dm, N, L = SP_SHAPES[0]
+    u, delta = rn(B, Dm, L), rn(B, Dm, L, scale=0.5)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1.0, device=dev)).repeat(Dm, 1))
+    Bm, Cm, D, z, bias = rn(B, N, L), rn(B, N, L), rn(Dm), rn(B, Dm, L), rn(Dm, scale=0.1) - 4.0
+    w = rn(B, Dm, L)
+    ins = [t.clone().requires_grad_() for t in (u, delta, A, Bm, Cm, D, z, bias)]
+    cs.selective_scan_chunked.launches = cs.selective_scan_chunked.bwd_launches = 0
+    out = selective_scan_sp(*ins[:7], delta_bias=ins[7], delta_softplus=True)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = {"fwd": cs.selective_scan_chunked.launches,
+                "bwd": cs.selective_scan_chunked.bwd_launches}
+    with torch.no_grad():
+        want = selective_scan_ref(u, delta, A, Bm, Cm, D, z, bias, delta_softplus=True)
+    err, rel, ok_v = compare(out.detach(), want, f32)
+    _, last = selective_scan(u, delta, A, Bm, Cm, return_last_state=True)
+    ok = (launches == {"fwd": 1, "bwd": 1} and ok_v and not last.requires_grad
+          and all(torch.isfinite(t.grad).all() for t in ins))
+    print("phase13 sp " + json.dumps(dict(
+        B=B, Dm=Dm, N=N, L=L, launches=launches, max_abs_err=err, rel_err=rel, tol=TOL[f32],
+        public_last_state_requires_grad=last.requires_grad, card=smi(), ok=ok)), flush=True)
+    failed.extend([] if ok else ["sp world 1"])
+    if failed:
+        raise SystemExit(f"phase13 FAILED: {failed}")
+    return {"kernel": recs, "launches": launches}
+
+
+def phase13_tp(seed: int) -> dict:
+    """(c) A Block at mamba-130m's widths (d_model 768, RMSNorm, fused
+    add+norm, d_state 16) on route b (`scan_impl="pallas"`), split by
+    `shard_params` over the one-rank group: one forward and backward at
+    2 x 2048 tokens, kernels 5/6 launched once each, its output and every
+    gradient against the unsplit module's. Returns the launches."""
+    from mm_unet_tpu_torch.models.mamba import Block
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.parallel.tp import shard_params
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed + 131)
+    blk = Block(768, 1e-5, rms_norm=True, fused_add_norm=True,
+                mamba_kwargs={"d_state": 16, "scan_impl": "pallas"}, generator=g).to(dev)
+    whole = copy.deepcopy(blk)
+    shard_params(blk)
+    x = (torch.randn(2, 2048, 768, generator=g) * 0.5).to(dev)
+    w = torch.randn(2, 2048, 768, generator=g).to(dev)
+    selective_scan_chunked.launches = selective_scan_chunked.bwd_launches = 0
+    h, res = blk(x)
+    (h * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = {"fwd": selective_scan_chunked.launches, "bwd": selective_scan_chunked.bwd_launches}
+    h2, _ = whole(x)
+    (h2 * w).sum().backward()
+    torch.cuda.synchronize()
+    errs = {"out": rel_err(h, h2)}
+    errs.update({k: rel_err(p.grad, dict(whole.named_parameters())[k].grad)
+                 for k, p in blk.named_parameters()})
+    ok = (launches == {"fwd": 1, "bwd": 1} and blk.mixer.tp is not None
+          and all(e[1] <= TOL[torch.float32] for e in errs.values()))
+    worst = max(errs.items(), key=lambda kv: kv[1][1])
+    print("phase13 tp " + json.dumps(dict(
+        d_model=768, tokens=[2, 2048], launches=launches, out_rel_err=errs["out"][1],
+        worst=[worst[0], worst[1][1]], tol=TOL[torch.float32], card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase13 FAILED: tp")
+    return launches
+
+
+def phase13_pp(seed: int) -> dict:
+    """(d) `mixer_pipeline_forward` at one stage and 4 microbatches of
+    phase 10's scoring batch (4 x 2048): mamba-130m's 24-layer MixerModel
+    (f32) forward, exactly 24 kernel-1 launches per microbatch, its output
+    against the model run straight through; then the same 24 layers at
+    d_model 384 (D 768), forward and backward, 24 kernel-1 and 24 kernel-2
+    launches per microbatch, output and the gradients of the embedding and
+    of the first and last Blocks' in_proj against the model straight
+    through. Kernel 2 takes no D past ~800 (its pass C keeps a chunk's D
+    channels whole: 430,720 B of shared memory at mamba-130m's D 1536), so
+    the LM trains on the card at half width. Returns the launches."""
+    from mm_unet_tpu_torch.models.lm import MAMBA_130M, give_lm
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.parallel.pp import mixer_pipeline_forward
+
+    dev, (B, L), M = torch.device("cuda"), LM_SCORE, 4
+    rng = np.random.default_rng(seed + 132)
+    ids = torch.from_numpy(rng.integers(0, MAMBA_130M["vocab_size"], (B, L))).to(dev)
+    out, failed = {}, []
+    for d_model, train in ((768, False), (384, True)):
+        backbone = give_lm(dict(MAMBA_130M, d_model=d_model), device="cuda",
+                           generator=torch.Generator().manual_seed(seed)).backbone
+        w = torch.from_numpy(rng.standard_normal((B, L, d_model)).astype(np.float32)).to(dev)
+        names = ("embedding.weight", "layers.0.mixer.in_proj.weight",
+                 "layers.23.mixer.in_proj.weight")
+        mamba_fused_scan.launches = mamba_fused_scan.bwd_launches = 0
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(train):
+            y = mixer_pipeline_forward(backbone, ids, num_microbatches=M)
+            fwd = mamba_fused_scan.launches
+            if train:
+                (y * w).sum().backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fwd": fwd, "bwd": mamba_fused_scan.bwd_launches}
+        params = dict(backbone.named_parameters())
+        got = {k: params[k].grad.clone() for k in names} if train else {}
+        y_pp = y.detach()
+        del y
+        backbone.zero_grad(set_to_none=True)
+        with torch.set_grad_enabled(train):
+            y2 = backbone(ids)
+            if train:
+                (y2 * w).sum().backward()
+        torch.cuda.synchronize()
+        err, rel = rel_err(y_pp, y2.detach())
+        gerr = {k: ((got[k] - params[k].grad).norm() / params[k].grad.norm()).item()
+                for k in got}
+        want = {"fwd": 24 * M, "bwd": 24 * M if train else 0}
+        ok = launches == want and rel <= PP_TOL and all(v <= PP_GRAD_TOL for v in gerr.values())
+        print("phase13 pp " + json.dumps(dict(
+            d_model=d_model, n_layer=24, backward=train, stages=1, microbatches=M,
+            batch=[B, L], launches=launches, expected=want, max_abs_err=err, rel_err=rel,
+            tol=PP_TOL, grad_rel_norm_errs=gerr, grad_tol=PP_GRAD_TOL, seconds=seconds,
+            card=smi(), ok=ok)), flush=True)
+        failed.extend([] if ok else [d_model])
+        out[d_model] = launches
+        del backbone, y2, y_pp
+    if failed:
+        raise SystemExit(f"phase13 FAILED: pp at d_model {failed}")
+    return {"fwd": out[768]["fwd"] + out[384]["fwd"], "bwd": out[384]["bwd"], "by_width": out}
+
+
+def phase13_ep_tools(seed: int) -> None:
+    """(e) `SwitchFFN` at d_model 768, 8 experts, split by
+    `shard_moe_params` over the one-rank group, against the unsplit module
+    (output, aux), with its time; `cli.weight_test` on UNet and CFPNet;
+    `cli.visualize` on config.yml's DRIVE run (MM_Net at init, the
+    synthetic validation set's two 512² images), its PNGs read back."""
+    import os
+    import shutil
+    import tempfile
+
+    from mm_unet_tpu_torch.cli import visualize, weight_test
+    from mm_unet_tpu_torch.parallel.ep import SwitchFFN, shard_moe_params
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed + 133)
+    ffn = SwitchFFN(**EP_WIDTHS, generator=g).to(dev)
+    whole = copy.deepcopy(ffn)
+    shard_moe_params(ffn)
+    x = torch.randn(*EP_SHAPE, EP_WIDTHS["d_model"], generator=g).to(dev)
+    with torch.no_grad():
+        (y, aux), (y2, aux2) = ffn(x), whole(x)
+        ms = cuda_ms(lambda: ffn(x), reps=10)
+    err, rel = rel_err(y, y2)
+    ok = (bool(torch.isfinite(y).all()) and rel <= TOL[torch.float32]
+          and abs(aux.item() - aux2.item()) <= 1e-6 and ffn.ep is not None)
+    print("phase13 ep " + json.dumps(dict(**EP_WIDTHS, tokens=list(EP_SHAPE), rel_err=rel,
+                                          aux=aux.item(), ms=ms, card=smi(), ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase13 FAILED: ep")
+
+    profiles = {n: weight_test.profile(n, weight_test.ZOO[n], "cuda") for n in ("UNet", "CFPNet")}
+    ok = all(p["params"] > 0 and p["flops"] > 0 and p["images_per_sec"] > 0
+             for p in profiles.values())
+    print("phase13 weight_test " + json.dumps(dict(profiles=profiles, card=smi(), ok=ok)),
+          flush=True)
+    if not ok:
+        raise SystemExit("phase13 FAILED: weight_test")
+
+    home, work = os.getcwd(), tempfile.mkdtemp(prefix="mmu_phase13_vis_")
+    os.chdir(work)
+    try:
+        cfg = cli_config("MM_Net_vis", 1)
+        cfg.visualization = {"save_dir": "vis"}
+        t0 = time.perf_counter()
+        rc = visualize.main(cfg, "cuda")
+        pngs = sorted(os.listdir("vis"))
+        shapes = {f: list(visualize.read_png(os.path.join("vis", f)).shape) for f in pngs}
+    finally:
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+    want = sorted(f"{i}_{k}.png" for i in range(2) for k in ("mask", "error", "contour"))
+    ok = rc == 0 and pngs == want and all(s[:2] == [512, 512] for s in shapes.values())
+    print("phase13 visualize " + json.dumps(dict(rc=rc, pngs=shapes,
+                                                 seconds=time.perf_counter() - t0, card=smi(),
+                                                 ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase13 FAILED: visualize")
+
+
+def phase13(seed: int, p9: dict) -> dict:
+    """Phase 13: (a) data parallelism through `cli.train`; then, in a
+    one-rank NCCL group, (b) sequence, (c) tensor, (d) pipeline and (e)
+    expert parallelism and the tools. Returns each path's launches."""
+    import torch.distributed as dist
+
+    dp = phase13_dp(seed, p9)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        sp = phase13_sp(seed)
+        tp = phase13_tp(seed)
+        pp = phase13_pp(seed)
+        phase13_ep_tools(seed)
+    finally:
+        dist.destroy_process_group()
+    return {"dp": dp, "sp": sp, "tp": tp, "pp": pp}
+
+
 def profile_step(path: str, step) -> dict:
     """One profiled call of `step` (already warm): device time by layer and
     the top kernels, and the share of the wall time the device was busy
@@ -3062,6 +3479,8 @@ def main() -> None:
     print(f"phase11 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     hwa = phase12_zoo(args.seed)
     print(f"phase12 done at {time.perf_counter() - t_all:.1f} s", flush=True)
+    par = phase13(args.seed, cli)
+    print(f"phase13 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     if any(m.split(".")[0] in ("jax", "flax", "mm_unet_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     unlaunched = [name for name, n in train.items() if n == 0]
@@ -3083,6 +3502,15 @@ def main() -> None:
     unlaunched += [f"{name} (HWAUNETR {path})" for path, names in (
         ("serve", ("mamba_fused_scan",)), ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd")))
         for name in names if hwa["launches"]["by_path"][path][name] == 0]
+    unlaunched += [f"{name} (data parallel {path})" for path, names in (
+        ("val", ("mamba_fused_scan", "tap_conv")),
+        ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd", "tap_conv", "tap_conv_bwd")))
+        for name in names if par["dp"][path][name] == 0]
+    unlaunched += [f"selective_scan{sfx} ({path} parallel)" for path in ("sp", "tp")
+                   for part, sfx in (("fwd", ""), ("bwd", "_bwd"))
+                   if (par[path]["launches"] if path == "sp" else par[path])[part] == 0]
+    unlaunched += [f"mamba_fused_scan{sfx} (pipeline parallel)"
+                   for part, sfx in (("fwd", ""), ("bwd", "_bwd")) if par["pp"][part] == 0]
     if unlaunched:
         raise SystemExit(f"chip_smoke: the main paths launched no {unlaunched}")
 
@@ -3143,29 +3571,41 @@ def main() -> None:
                 **um_entry("mamba_fused_scan", um_fwd),
                 **hwa_entry("mamba_fused_scan", hwa["fwd_steps"]),
                 lm=dict(lm["kernel"], launches_per_scoring_forward=lm["launches"][
-                    "mamba_fused_scan"])),
+                    "mamba_fused_scan"]),
+                parallel={"dp": {p: par["dp"][p]["mamba_fused_scan"] for p in ("train", "val")},
+                          "pp": par["pp"]["fwd"]}),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps),
                 **um_entry("mamba_fused_scan_bwd", um_bwd),
-                **hwa_entry("mamba_fused_scan_bwd", hwa["bwd_steps"])),
+                **hwa_entry("mamba_fused_scan_bwd", hwa["bwd_steps"]),
+                parallel={"dp": par["dp"]["train"]["mamba_fused_scan_bwd"],
+                          "pp": par["pp"]["bwd"]}),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:110", mm,
-                **step_sums(tap_fwd_steps, tap_keys), **um_entry("tap_conv", um_tap_fwd, tap_keys)),
+                **step_sums(tap_fwd_steps, tap_keys), **um_entry("tap_conv", um_tap_fwd, tap_keys),
+                parallel={"dp": {p: par["dp"][p]["tap_conv"] for p in ("train", "val")}}),
         summary("tap_conv_bwd", "mm_unet_tpu_torch/csrc/tap_conv_bwd.cu",
                 "mm_unet_tpu/ops/tap_conv.py:133", mm,
                 **step_sums(tap_bwd_steps, tap_keys, ("dfeat_kernel_ms", "dkernel_kernel_ms")),
                 **um_entry("tap_conv_bwd", um_tap_bwd, tap_keys,
-                         ("dfeat_kernel_ms", "dkernel_kernel_ms"))),
+                         ("dfeat_kernel_ms", "dkernel_kernel_ms")),
+                parallel={"dp": par["dp"]["train"]["tap_conv_bwd"]}),
         summary("selective_scan", "mm_unet_tpu_torch/csrc/selective_scan_fwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:242", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128",
                 **step_sums(scan_fwd_steps, scan_keys),
                 lm_route_b={"launches_per_scoring_forward": lm["route_b_launches"][
-                    "selective_scan"]}),
+                    "selective_scan"]},
+                parallel={"sp": par["sp"]["launches"]["fwd"], "tp": par["tp"]["fwd"]}),
         summary("selective_scan_bwd", "mm_unet_tpu_torch/csrc/selective_scan_bwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:278", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:169",
-                **step_sums(scan_bwd_steps, scan_keys, scan_parts)),
+                **step_sums(scan_bwd_steps, scan_keys, scan_parts),
+                parallel={"sp": par["sp"]["launches"]["bwd"], "tp": par["tp"]["bwd"]},
+                sp_dlast=[{k: r[k] for k in ("B", "Dm", "N", "L", "bwd_ms_with_dlast",
+                                             "bwd_ms_without_dlast", "bound_ms", "bound_by",
+                                             "plain_fwd_bwd_ms", "rel_errs")}
+                          for r in par["sp"]["kernel"]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

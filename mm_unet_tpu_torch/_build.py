@@ -53,9 +53,9 @@ _SIGNATURES = {
     # b_gdiv, c_gdiv, b_var, c_var, B, Dm, L, N, T, span, chans, softplus, is_bf16,
     # bc_bf16, stream
     "selective_scan_fwd": [VP] * 13 + [I32] * 14 + [VP],
-    # u, delta, z, B, C, A, bias, D, state, dtsum, dout, du, ddelta, dz, gcarry, p_dA,
-    # p_dD, p_dbias, p_dB, p_dC, bc_strides, then the ints and stream of the forward
-    "selective_scan_bwd": [VP] * 21 + [I32] * 14 + [VP],
+    # u, delta, z, B, C, A, bias, D, state, dtsum, dout, dlast, du, ddelta, dz, gcarry,
+    # p_dA, p_dD, p_dbias, p_dB, p_dC, bc_strides, then the ints and stream of the forward
+    "selective_scan_bwd": [VP] * 22 + [I32] * 14 + [VP],
 }
 
 

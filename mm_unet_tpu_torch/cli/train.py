@@ -8,6 +8,14 @@ checkpoint on `Val/mean f1` and a `checkpoint` after every epoch, each with
 from `checkpoint`, and on SIGTERM/SIGINT a `checkpoint` of the interrupted
 epoch (redone on resume) and exit code 0. `setup` builds the run and
 `fit` runs its epochs; `main` is the two.
+
+Data parallel on N cards (or N CPU processes with `--device cpu`):
+
+    torchrun --nproc_per_node=N -m mm_unet_tpu_torch.cli.train
+
+with ZeRO-1 unless `trainer.zero1: false`. Every rank validates the whole
+validation set and takes rank 0's f1, so all agree on the best; a signal
+that reaches any rank stops all of them at the same step boundary.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ from typing import Optional
 from mm_unet_tpu_torch.cli.session import Session, open_session, run
 from mm_unet_tpu_torch.evaluate import val_one_epoch
 from mm_unet_tpu_torch.train.checkpoint import resume_train_state
-from mm_unet_tpu_torch.train.loop import train_one_epoch
+from mm_unet_tpu_torch.train.loop import stop_requested, train_one_epoch
 from mm_unet_tpu_torch.train.metrics import build_metrics
 from mm_unet_tpu_torch.utils import ConfigDict, GracefulShutdown
 
@@ -44,7 +52,7 @@ def fit(s: Session) -> int:
         for epoch in range(s.starting_epoch, s.num_epochs):
             train_one_epoch(s.state, s.loss_fn, s.train_loader, metrics, epoch, s.num_epochs,
                             tracker=s.tracker, stop=s.stop)
-            if s.stop.requested:
+            if stop_requested(s.stop, s.dp):
                 # epoch NOT +1: the interrupted epoch is redone on resume
                 s.manager.save_checkpoint(s.state, {
                     "epoch": epoch, "best_acc": s.best_acc,
@@ -55,13 +63,16 @@ def fit(s: Session) -> int:
             mean_f1, metric, losses = val_one_epoch(
                 s.model, s.loss_fn, s.inferer, s.val_loader, val_metrics, epoch, s.num_epochs,
                 val_step, s.tracker, s.class_names)
+            if s.dp is not None:  # every rank takes rank 0's result
+                mean_f1, metric = s.dp.broadcast_object((mean_f1, metric))
             val_step += len(losses)
             meta = {"epoch": epoch + 1, "best_acc": s.best_acc, "best_class": metric}
             if mean_f1 > s.best_acc:
                 s.best_acc = mean_f1
                 meta["best_acc"] = s.best_acc
                 s.manager.save_best(s.state, meta)
-                print(f"new best f1 {s.best_acc:.4f} at epoch {epoch + 1}", flush=True)
+                if s.is_main:
+                    print(f"new best f1 {s.best_acc:.4f} at epoch {epoch + 1}", flush=True)
             s.manager.save_checkpoint(s.state, meta)
         print(f"best f1: {s.best_acc:.4f}", flush=True)
         return 0

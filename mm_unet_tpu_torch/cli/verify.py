@@ -5,7 +5,8 @@
 Loads the best checkpoint named by `finetune.checkpoint` when there is
 one, fine-tunes for `trainer.verify_warmup` epochs (default 1), then runs
 sliding-window validation with the seven metrics and HD95 and prints
-`verify: best dice ...`.
+`verify: best dice ...`. Under `torchrun --nproc_per_node=N` the warm-up
+epochs are data parallel, as `cli.train`'s.
 """
 
 from __future__ import annotations

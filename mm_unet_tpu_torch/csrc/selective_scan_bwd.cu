@@ -12,8 +12,12 @@
 //   dB = sum_d g dt u   dC = sum_d h dy   dA = sum_t g (h - b) dt
 //   dD = sum_t dy u     dbias = sum_t ddt
 // where h - b = a h_prev: the pre-fold b keeps the cross-chunk term a_0 h_in.
-// Every gradient is computed in f32 and written in its input's dtype; the
-// last state takes no gradient.
+// Every gradient is computed in f32 and written in its input's dtype. The
+// last state's gradient dlast (B, Dm, N) f32, when given, is the adjoint that
+// enters the last token from beyond it: pass B starts its walk from it (pass
+// C of a single chunk from it directly), and pass C carries it into du, ddt,
+// dA and dB like any other carry. Without it the last state takes no
+// gradient.
 //
 // What bounds it on the H100: the bytes of u, delta, z, dout, B, C in and
 // du, ddelta, dz, dB, dC out, about twice the forward's; the arithmetic is
@@ -75,6 +79,7 @@ using mmu::ScanArgs;
 
 struct BwdOut {
   const void* dout;  // (B, Dm, L) stream dtype
+  const float* dlast;  // (B, Dm, N) gradient of the last state, or null
   void* du;          // (B, Dm, L) stream dtype
   void* ddelta;      // (B, Dm, L) stream dtype
   void* dz;          // (B, Dm, L) stream dtype, or null without z
@@ -152,7 +157,7 @@ __global__ void __launch_bounds__(128) scan_bwd_combine_kernel(ScanArgs a, BwdOu
   const int n = i % a.N, d = (i / a.N) % a.Dm;
   const int64_t b = i / ((int64_t)a.Dm * a.N);
   const float a_dn = a.A[(size_t)d * a.N + n];
-  float carry = 0.f;
+  float carry = o.dlast ? o.dlast[i] : 0.f;  // i = (b, d, n), the last state's layout
   for (int s0 = 0; s0 < a.nC; s0 += kAhead) {
     float local[kAhead], dts[kAhead];
 #pragma unroll
@@ -246,7 +251,9 @@ __global__ void __launch_bounds__(512) scan_bwd_chunk_kernel(ScanArgs a, BwdOut 
         h = expf(dt4.v[j] * a_dn) * h + dt4.v[j] * u4.v[j] * (b4.v[j] + Bc);
     }
   }
-  float carry = (live && a.nC > 1) ? o.gcarry[sidx] : 0.f;
+  float carry = 0.f;
+  if (live && a.nC > 1) carry = o.gcarry[sidx];
+  else if (live && o.dlast) carry = o.dlast[((size_t)k.b * a.Dm + d) * N + n];
   float dA_acc = 0.f, dB_acc = 0.f, dC_acc = 0.f, dD_acc = 0.f, dbias_acc = 0.f;
   for (int s = nsub - 1; s >= 0; --s) {  // sub-chunks against the scan direction
     // rebuild the sub-chunk's states and decays into registers
@@ -412,7 +419,8 @@ int launch(const ScanArgs& a, const BwdOut& o, cudaStream_t stream) {
 extern "C" int selective_scan_bwd(const void* u, const void* delta, const void* z, const void* Bm,
                                   const void* Cm, const void* A, const void* bias,
                                   const void* Dskip, const void* state, const void* dtsum,
-                                  const void* dout, void* du, void* ddelta, void* dz,
+                                  const void* dout, const void* dlast, void* du, void* ddelta,
+                                  void* dz,
                                   void* gcarry, void* p_dA, void* p_dD, void* p_dbias,
                                   void* p_dB, void* p_dC, const int64_t* bc_strides, int b_gdiv,
                                   int c_gdiv, int b_var, int c_var, int Bsz, int Dm, int L, int N,
@@ -425,7 +433,7 @@ extern "C" int selective_scan_bwd(const void* u, const void* delta, const void* 
       T % kS != 0)  // pass C walks whole sub-chunks
     return cudaErrorInvalidValue;
   BwdOut o;
-  o.dout = dout; o.du = du; o.ddelta = ddelta; o.dz = dz;
+  o.dout = dout; o.dlast = static_cast<const float*>(dlast); o.du = du; o.ddelta = ddelta; o.dz = dz;
   o.gcarry = static_cast<float*>(gcarry);
   o.p_dA = static_cast<float*>(p_dA);
   o.p_dD = static_cast<float*>(p_dD);

@@ -136,7 +136,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the batch mean and the biased batch variance E[x^2] - E[x]^2
     (clipped at 0, flax's fast variance) and updates the running statistics
     in place as flax does, running = 0.9 * running + 0.1 * batch, with the
-    biased variance (`F.batch_norm` would store the unbiased one)."""
+    biased variance (`F.batch_norm` would store the unbiased one). Under data
+    parallelism (`sync`, a `parallel.mesh.DataParallel`) the batch
+    statistics are the global batch's."""
 
     MOMENTUM = 0.9  # flax's convention: the weight of the old running value
 
@@ -144,6 +146,7 @@ class BatchNorm2d(nn.BatchNorm2d):
                  eps: float = 1e-5):
         super().__init__(num_features, eps=eps)
         self.compute_dtype = compute_dtype
+        self.sync = None
 
     def forward(self, x):
         cd, rd = _cdtype(self.compute_dtype, x, self.weight), _rdtype(x)
@@ -152,8 +155,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(xf, self.running_mean.to(rd), self.running_var.to(rd),
                              self.weight.to(rd), self.bias.to(rd), False, 0.0, self.eps)
             return y.to(cd)
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        if self.sync is None:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            mean, var = self.sync.batch_moments(xf, (0, 2, 3))
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean.detach().to(self.running_mean.dtype), alpha=1 - m)
@@ -161,6 +167,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight.to(rd)
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(rd)[:, None, None]
         return y.to(cd)
+
+
+def _uniform(layer: nn.Module, shape: tuple, x: torch.Tensor) -> torch.Tensor:
+    """U(0, 1) draws of `shape` (leading axis: x's batch) from the layer's
+    generator on x's device. Under data parallelism (`layer.sync`) they are
+    drawn for the global batch and this rank keeps its rows, so that the
+    masks do not depend on the world size."""
+    world = 1 if layer.sync is None else layer.sync.world
+    u = torch.rand((shape[0] * world, *shape[1:]), generator=layer.generator, device=x.device)
+    return u if layer.sync is None else layer.sync.local_rows(u)
 
 
 class Dropout2d(nn.Module):
@@ -175,12 +191,13 @@ class Dropout2d(nn.Module):
         super().__init__()
         self.p = p
         self.generator = generator
+        self.sync = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand(x.shape[0], x.shape[1], 1, 1, generator=self.generator, device=x.device)
+        u = _uniform(self, (x.shape[0], x.shape[1], 1, 1), x)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -194,12 +211,13 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator = generator
+        self.sync = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        u = _uniform(self, x.shape, x)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -214,13 +232,13 @@ class DropPath(nn.Module):
         super().__init__()
         self.p = p
         self.generator = generator
+        self.sync = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand(x.shape[0], *([1] * (x.ndim - 1)), generator=self.generator,
-                       device=x.device)
+        u = _uniform(self, (x.shape[0], *([1] * (x.ndim - 1))), x)
         return x * (u < keep).to(x.dtype) / keep
 
 

@@ -32,6 +32,10 @@ else `out` alone.
 Parameter names are the torch reference's (`mm_unet_tpu.utils.torch_convert.
 mamba_pairs`): in_proj, out_proj, conv1d{s}, x_proj{s}, dt_proj{s}, A{s}_log,
 D{s} for each direction suffix s.
+
+`tp` (a process group, set by `parallel.tp.shard_params`) makes the module
+tensor-parallel over its channels: the three collectives of
+`parallel/tp.py` run on the grouped-scan route.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from mm_unet_tpu_torch.models.layers import lecun_normal_
 from mm_unet_tpu_torch.ops.causal_conv1d import causal_conv1d
 from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
 from mm_unet_tpu_torch.ops.selective_scan import selective_scan
+from mm_unet_tpu_torch.parallel.comm import all_reduce_sum, copy_to_group, reduce_from_group
 
 # weight-set suffixes of each bimamba type, in the order the weights are drawn
 DIRECTIONS = {"v3": ("", "_b", "_s"), "v2": ("", "_b"), "none": ("",)}
@@ -79,6 +84,7 @@ class Mamba(nn.Module):
             raise NotImplementedError(dt_init)
         self.d_model, self.d_state, self.nslices, self.dtype = d_model, d_state, nslices, dtype
         self.scan_impl = scan_impl
+        self.tp = None  # the tensor-parallel group (parallel/tp.py)
         self.d_inner = d_in = int(expand * d_model)
         self.dt_rank = r = math.ceil(d_model / 16) if dt_rank == "auto" else dt_rank
         n = d_state
@@ -164,6 +170,8 @@ class Mamba(nn.Module):
         x_proj = torch.stack([getattr(self, f"x_proj{s}").weight for s in sfx]).to(cd)
         dt_w = torch.stack([getattr(self, f"dt_proj{s}").weight for s in sfx]).to(cd)
         x_dbl = torch.einsum("bgdl,ged->bgel", x_all.reshape(bsz, g, d_in, length), x_proj)
+        if self.tp is not None:  # row-parallel x_proj: the ranks' partial sums
+            x_dbl = all_reduce_sum(x_dbl, self.tp)
         dt = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :r], dt_w).reshape(bsz, g * d_in, length)
         A = -torch.exp(torch.stack([getattr(self, f"A{s}_log") for s in sfx]).float())
         dt_b = torch.cat([getattr(self, f"dt_proj{s}").bias for s in sfx]).float()
@@ -182,6 +190,8 @@ class Mamba(nn.Module):
             raise ValueError(f"v3 slice scan requires seqlen % nslices == 0, got {seqlen} % {ns}")
         cd = self.dtype or hidden_states.dtype
         x = hidden_states.to(cd)
+        if self.tp is not None:  # every rank's in_proj rows read the whole input
+            x = copy_to_group(x, self.tp)
         w_in = self.in_proj.weight.to(cd)
         xz = self._project_in(x, w_in)
 
@@ -231,6 +241,8 @@ class Mamba(nn.Module):
             o3p = torch.einsum("bdl,ed->ble", y_sl, w_out)
             out = out + o3p.reshape(batch, seqlen // ns, ns, dm).transpose(1, 2).reshape(
                 batch, seqlen, dm)
+        if self.tp is not None:  # row-parallel out_proj
+            out = reduce_from_group(out, self.tp)
         if self.out_proj.bias is not None:
             out = out + self.out_proj.bias.to(cd)
         if bt == "v3":

@@ -20,8 +20,10 @@ and L to its chunk; the kernels mask their ragged edges instead.
 Dtypes: u, delta and z share one stream dtype (f32 or bf16; mixed streams
 are promoted to f32, which is exact), B and C one dtype of their own; the
 state and every sum are f32; the output has u's dtype and every gradient its
-input's. The last state takes no gradient. `selective_scan_chunked.launches`
-and `.bwd_launches` count kernel launches.
+input's. The last state takes no gradient, except through
+`selective_scan_chunked_last`, the sequence-parallel scan's local scan, whose
+last state's gradient seeds the backward kernel's carry.
+`selective_scan_chunked.launches` and `.bwd_launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -148,10 +150,11 @@ def _launch_fwd(u, delta, z, A, B, C, D, bias, softplus, want_last, plan):
     return out, state, dtsum, last
 
 
-def _launch_bwd(dout, u, delta, z, A, B, C, D, bias, state, dtsum, softplus, plan):
+def _launch_bwd(dout, u, delta, z, A, B, C, D, bias, state, dtsum, softplus, plan, dlast=None):
     """The backward kernel: (du, ddelta, dA, dB, dC, dD, dz, dbias), the
     parameter gradients and dB/dC summed over the kernel's per-block f32
-    partials (as core_bwd sums over batch and channel blocks)."""
+    partials (as core_bwd sums over batch and channel blocks). `dlast`
+    (B, Dm, N) f32, the last state's gradient, seeds the adjoint carry."""
     from mm_unet_tpu_torch import _build
 
     batch, dim, length = u.shape
@@ -175,7 +178,7 @@ def _launch_bwd(dout, u, delta, z, A, B, C, D, bias, state, dtsum, softplus, pla
     strides = (ctypes.c_int64 * 8)(*plan.strides)
     err = _build.library().selective_scan_bwd(
         u.data_ptr(), delta.data_ptr(), _ptr(z), B.data_ptr(), C.data_ptr(), A.data_ptr(),
-        _ptr(bias), _ptr(D), state.data_ptr(), dtsum.data_ptr(), dout.data_ptr(),
+        _ptr(bias), _ptr(D), state.data_ptr(), dtsum.data_ptr(), dout.data_ptr(), _ptr(dlast),
         du.data_ptr(), ddelta.data_ptr(), _ptr(dz), gcarry.data_ptr(), p_dA.data_ptr(),
         _ptr(p_dD), _ptr(p_dbias), p_dB.data_ptr(), p_dC.data_ptr(), ctypes.addressof(strides),
         *_shape_args(u, A, plan, softplus, B),
@@ -199,27 +202,32 @@ class _SelectiveScanFn(torch.autograd.Function):
     """The forward kernel, keeping the chunk-entry states and per-chunk sums
     of dt for the backward kernel. Inputs arrive in the kernels' dtypes
     (the caller casts, so autograd carries each gradient back through its
-    cast); the gradients come back in those dtypes."""
+    cast); the gradients come back in those dtypes. The last state takes a
+    gradient only with `diff_last`."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D, z, bias, softplus, want_last):
+    def forward(ctx, u, delta, A, B, C, D, z, bias, softplus, want_last, diff_last=False):
         plan = _plan(u, A, B, C)
         out, state, dtsum, last = _launch_fwd(u, delta, z, A, B, C, D, bias, softplus,
                                               want_last, plan)
         ctx.plan, ctx.softplus = plan, softplus
+        ctx.set_materialize_grads(False)  # an unused output's gradient arrives as None
         ctx.save_for_backward(u, delta, z, A, B, C, D, bias, state, dtsum)
         if want_last:
-            ctx.mark_non_differentiable(last)
+            if not diff_last:
+                ctx.mark_non_differentiable(last)
             return out, last
         return out
 
     @staticmethod
-    def backward(ctx, dout, *_):  # the last state takes no gradient
+    def backward(ctx, dout, dlast=None):
         u, delta, z, A, B, C, D, bias, state, dtsum = ctx.saved_tensors
+        dout = torch.zeros_like(u) if dout is None else dout.to(u.dtype).contiguous()
+        if dlast is not None:
+            dlast = dlast.float().contiguous()
         du, ddelta, dA, dB, dC, dD, dz, dbias = _launch_bwd(
-            dout.to(u.dtype).contiguous(), u, delta, z, A, B, C, D, bias, state, dtsum,
-            ctx.softplus, ctx.plan)
-        return du, ddelta, dA, dB, dC, dD, dz, dbias, None, None
+            dout, u, delta, z, A, B, C, D, bias, state, dtsum, ctx.softplus, ctx.plan, dlast)
+        return du, ddelta, dA, dB, dC, dD, dz, dbias, None, None, None
 
 
 def selective_scan_chunked(
@@ -233,10 +241,12 @@ def selective_scan_chunked(
     delta_bias: Optional[torch.Tensor] = None,  # (Dm,)
     delta_softplus: bool = False,
     return_last_state: bool = False,
+    _diff_last: bool = False,
 ):
     """The selective scan on CUDA tensors through the kernel pair:
     (B, Dm, L) in u's dtype and, with `return_last_state`, the (B, Dm, N)
-    f32 last state. Differentiable w.r.t. every tensor input."""
+    f32 last state. Differentiable w.r.t. every tensor input; the last state
+    takes no gradient (see `selective_scan_chunked_last`)."""
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan_chunked: no kernel for device {u.device}")
     batch, dim, length = u.shape
@@ -257,11 +267,19 @@ def selective_scan_chunked(
     res = _SelectiveScanFn.apply(
         u.to(sd).contiguous(), delta.to(sd).contiguous(), vec(A), B.to(dev, bcd),
         C.to(dev, bcd), vec(D), None if z is None else z.to(sd).contiguous(), vec(delta_bias),
-        bool(delta_softplus), bool(return_last_state),
+        bool(delta_softplus), bool(return_last_state), bool(_diff_last),
     )
     if return_last_state:
         return res[0].to(u.dtype), res[1]
     return res.to(u.dtype)
+
+
+def selective_scan_chunked_last(u, delta, A, B, C):
+    """The bare scan (no prologue or epilogue) on CUDA tensors: (y, last
+    state), both differentiable. The last state's gradient seeds the
+    backward kernel's carry. The sequence-parallel scan's local scan
+    (`parallel/sp.py`)."""
+    return selective_scan_chunked(u, delta, A, B, C, return_last_state=True, _diff_last=True)
 
 
 selective_scan_chunked.launches = 0

@@ -74,6 +74,17 @@ def _chunk_len(D: int, E: int) -> int:
     return t
 
 
+def _bwd_tile_bytes(D: int, E: int, N: int, T: int) -> int:
+    """The backward's pass C shared memory (csrc/mamba_fused_bwd.cu): rows
+    of T + 1 floats for u, dt, dy, du of D channels and x_dbl, dx_dbl of E
+    rows, and each thread's state at every sub-chunk's entry."""
+    threads = min(512, -(-D * N // 32) * 32)
+    return ((4 * D + 2 * E) * (T + 1) + T // _SUB_CHUNK * threads) * 4
+
+
+_SMEM_OPT_IN = 232448  # bytes of shared memory a block may take on the H100
+
+
 def _tile_bytes(D: int, E: int, T: int) -> int:
     """The forward's shared-memory tile: rows of T + 1 floats for u and dt
     of D channels and E x_dbl rows (`smem_for`, csrc/mamba_fused_fwd.cu)."""
@@ -134,6 +145,12 @@ def _launch_bwd(dout, xz, w, state, dtsum, reverse):
     D, R, N, W = D2 // 2, w[3].shape[2], w[5].shape[2], w[0].shape[2]
     E, sd, dev = R + 2 * N, xz.dtype, xz.device
     nC, nCT = state.shape[2], -(-L // _CONV_TILE)
+    T = _chunk_len(D, E)
+    if _bwd_tile_bytes(D, E, N, T) > _SMEM_OPT_IN:
+        raise ValueError(
+            f"mamba_fused_scan backward: D {D} (E {E}) needs {_bwd_tile_bytes(D, E, N, T)} B of "
+            f"shared memory per block in its pass C at T {T}, past the {_SMEM_OPT_IN} B a "
+            "block can take: the kernel keeps a chunk's D channels whole (ROADMAP.md)")
     dout = dout.to(sd).contiguous()
     dxz = torch.empty_like(xz)
     gcarry = torch.empty(Bsz, G, nC, D, N, device=dev)
@@ -148,7 +165,7 @@ def _launch_bwd(dout, xz, w, state, dtsum, reverse):
         xz.data_ptr(), dout.data_ptr(), dxz.data_ptr(), *(t.data_ptr() for t in w),
         state.data_ptr(), dtsum.data_ptr(), gcarry.data_ptr(), dpre.data_ptr(),
         p_dxp.data_ptr(), p_ddtw.data_ptr(), p_ddtb.data_ptr(), p_dA.data_ptr(),
-        p_dD.data_ptr(), p_dconv.data_ptr(), Bsz, G, D, L, N, R, W, _chunk_len(D, E),
+        p_dD.data_ptr(), p_dconv.data_ptr(), Bsz, G, D, L, N, R, W, T,
         _CONV_TILE, int(reverse), int(sd == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )

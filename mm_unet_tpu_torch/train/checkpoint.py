@@ -26,9 +26,15 @@ from mm_unet_tpu_torch.train.trainer import TrainState
 
 
 class CheckpointManager:
-    def __init__(self, root: str, name: str):
+    """`write` False (the ranks but 0 of a data-parallel run) builds each
+    payload, which gathers a ZeRO-1 optimizer's state from every rank, and
+    writes nothing."""
+
+    def __init__(self, root: str, name: str, write: bool = True):
         self.base = os.path.abspath(os.path.join(root, name))
-        os.makedirs(self.base, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.base, exist_ok=True)
 
     def path(self, tag: str) -> str:
         return os.path.join(self.base, tag)
@@ -43,6 +49,8 @@ class CheckpointManager:
             "step": int(state.step),
             "generator": state.generator.get_state(),
         }
+        if not self.write:
+            return
         tmp = self.path(tag) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(tag))

@@ -2,8 +2,14 @@
 
 Each batch goes through `train_step`; the metric statistics feed the numpy
 metrics' `update_stats` (`train/metrics.py`). The running step is the train
-state's `step`. The mesh and batch sharding of the JAX loop are not ported
-(ROADMAP.md).
+state's `step`.
+
+Under data parallelism (`TrainState.dp`) every rank reads the same global
+batch and keeps its rows (`parallel/mesh.py::shard_batch`); the step's
+scalars are summed and its metric statistics gathered over the ranks before
+they are logged, so that the printed losses and the epoch's metrics are the
+one-process run's. The stop flag is agreed at every step boundary
+(`stop_requested`): a signal that reaches any rank stops them all there.
 
 On the card the loop keeps one step in flight, as the JAX loop does
 (`train.py:40-42`). Each batch is staged in pinned host memory and copied
@@ -22,6 +28,7 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 
+from mm_unet_tpu_torch.parallel.mesh import shard_batch
 from mm_unet_tpu_torch.train.trainer import TrainState, train_step
 
 
@@ -62,6 +69,15 @@ class HostCopy:
                 for k, v in self.values.items()}
 
 
+def stop_requested(stop, dp=None) -> bool:
+    """Whether the run stops here: `stop.requested`, or under data
+    parallelism that of any rank, latched on this one (every rank must call
+    it at the same point)."""
+    if dp is not None and dp.any(stop.requested):
+        stop.requested = True
+    return stop.requested
+
+
 def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable[Mapping],
                     metrics: Mapping, epoch: int = 0, num_epochs: int = 1,
                     tracker=None, stop=None) -> dict:
@@ -74,7 +90,7 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
     at the step's count, and the epoch's metrics at the step count after
     the epoch. `stop` (a `GracefulShutdown`) is read before each step: once
     it is requested the epoch ends there, and the caller checkpoints."""
-    device = next(state.model.parameters()).device
+    device, dp = next(state.model.parameters()).device, state.dp
     t0 = time.perf_counter()
     n_img = 0
     n_batches = len(train_loader) if hasattr(train_loader, "__len__") else "?"
@@ -83,6 +99,10 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
     def flush(entry):
         i, step, scalars, stats = entry
         scalars, stats = scalars.get(), stats.get()
+        if dp is not None:  # the global batch's losses and statistics
+            scalars = dp.host_sum(scalars)
+            stats.update({k: dp.host_gather(stats[k])
+                          for k in ("inter", "psum", "tsum", "weight")})
         print(f"Epoch [{epoch + 1}/{num_epochs}] Training [{i + 1}/{n_batches}] "
               f"Loss: {float(scalars['total_loss']):1.5f}", flush=True)
         if tracker is not None:
@@ -91,12 +111,17 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
             m.update_stats(stats)
 
     for i, batch in enumerate(train_loader):
-        if stop is not None and stop.requested:
+        if stop is not None and stop_requested(stop, dp):
             break  # preemption: stop at a step boundary; the caller checkpoints
+        n_img += batch["image"].shape[0]
+        weight = None
+        if dp is not None:
+            batch, weight = shard_batch({"image": batch["image"], "label": batch["label"]},
+                                        dp.rank, dp.world)
+            weight = stage(weight, device)
         images, labels = stage(batch["image"], device), stage(batch["label"], device)
         step = state.step
-        scalars, stats = train_step(state, images, labels, loss_fn)
-        n_img += images.shape[0]
+        scalars, stats = train_step(state, images, labels, loss_fn, sample_weight=weight)
         entry = (i, step, HostCopy(scalars), HostCopy(stats))
         if pending is not None:
             flush(pending)

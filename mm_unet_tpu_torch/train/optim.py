@@ -76,15 +76,19 @@ def warmup_cosine_epoch_schedule(
 def build_optimizer(model: nn.Module, opt: str = "adamw", lr: float = 1e-3,
                     weight_decay: float = 0.05,
                     betas: tuple[float, float] = (0.9, 0.95),
-                    eps: float = 1e-8) -> torch.optim.Optimizer:
+                    eps: float = 1e-8, zero=None):
     """AdamW over `param_groups`; the fused CUDA implementation when the
-    parameters lie on the card. The learning rate is set before each step
-    by the trainer (`set_lr`)."""
+    parameters lie on the card. With `zero` (a `parallel.mesh.DataParallel`)
+    the same AdamW sharded ZeRO-1 over its ranks (`parallel/zero.py`). The
+    learning rate is set before each step by the trainer (`set_lr`)."""
     if opt.lower() != "adamw":
         raise NotImplementedError(f"optimizer {opt!r}")
-    fused = next(model.parameters()).is_cuda
-    return torch.optim.AdamW(param_groups(model, weight_decay), lr=lr, betas=betas, eps=eps,
-                             fused=fused)
+    kwargs = dict(lr=lr, betas=betas, eps=eps, fused=next(model.parameters()).is_cuda)
+    if zero is not None:
+        from mm_unet_tpu_torch.parallel.zero import ZeroAdamW
+
+        return ZeroAdamW(param_groups(model, weight_decay), zero, **kwargs)
+    return torch.optim.AdamW(param_groups(model, weight_decay), **kwargs)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
