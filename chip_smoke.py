@@ -10,7 +10,10 @@ any failure ends the run non-zero):
    the shapes MM_Net's 512² batch-8 path gives it, in f32 and bf16, forward
    and reverse, with the tolerance stated on the line and both times; then
    each backward kernel against autograd of the plain version at the same
-   shapes, every input's gradient compared; then the chunked selective scan
+   shapes and kernel 2 also at the Mamba LM's (B 4, D 1536, L 2048), every
+   input's gradient compared, kernel 2's lines with its plan (nb blocks of
+   Dc channels a chunk) and its passes' resident blocks per SM; then the
+   chunked selective scan
    (forward and backward kernels) through `selective_scan` at dkDualNet's
    three grouped scans (512², batch 8, f32 and bf16, every fused flag), the
    bare scan with its last state and a constant (D, N) B/C, its backward
@@ -100,7 +103,11 @@ any failure ends the run non-zero):
    route b (kernel 5) against route a; (d) `generate` and `generate_scan`
    (CUDA graph) at batch 1 and 8, prompt 100, 100 new tokens: tokens/s,
    greedy and sampled tokens equal between the two, teacher-forced step
-   logits against the forward's;
+   logits against the forward's; (e) training (forward and backward of the
+   24 layers at 4 x 2048) on route a (kernels 1/2) and on route b (kernels
+   5/6) with the same weights, exact launches, tokens/s, device time, busy
+   share and peak memory of each, the output and every parameter gradient
+   of a against b;
 11. the zoo: config.yml's other seven models (UNet, ConvUNeXt, CFPNet,
    UNETR, TransUNet, SWINUNETR, FCBFormer) through `give_model_from_config`
    at config.yml's settings and full width, f32, seeded weights: (a) each
@@ -146,16 +153,15 @@ any failure ends the run non-zero):
    b (kernels 5/6 once each) against the unsplit one; (d)
    `mixer_pipeline_forward` at one stage and 4 microbatches of 4 x 2048:
    mamba-130m's 24 layers forward (24 kernel-1 launches per microbatch),
-   then 24 layers at d_model 384 forward and backward (24 kernel-1 and 24
-   kernel-2 launches per microbatch: kernel 2 takes no D past ~800),
-   against the model run straight through; (e) the Switch FFN
+   then forward and backward (24 kernel-1 and 24 kernel-2 launches per
+   microbatch), against the model run straight through; (e) the Switch FFN
    (d_model 768, 8 experts) split against unsplit, `cli.weight_test` on
    UNet and CFPNet, `cli.visualize` on the DRIVE run's two validation
    images.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
-on the paths above; kernel 1's entry carries the LM's under `lm`, rows 1-2
+on the paths above; kernels 1 and 2 carry the LM's under `lm`, rows 1-2
 UM_Net's under `um_net` and HWAUNETR's under `hwaunetr`, the parallel
 paths' launches under `parallel`, kernel 8's times with and without the
 last state's gradient under `sp_dlast`), and
@@ -264,6 +270,14 @@ LM_PROMPT, LM_NEW, LM_BATCHES = 100, 100, (1, 8)
 # temperature 1 every sample is the argmax; at 8 the samples leave the
 # greedy tokens, and the two decoders' agreement means something
 LM_SAMPLING = dict(temperature=8.0, top_k=50, top_p=0.9)
+# LM training at mamba-130m's widths (phase 10 (e)), f32, 4 x 2048: route
+# a (kernels 1/2) against route b (kernels 5/6) with the same weights, the
+# backbone's output and every parameter gradient as ||a - b|| / ||b|| of
+# its own tensor; both routes compute the same function and differ in
+# summation order only, carried through 24 layers (largest reading 2.3e-6,
+# a dt_proj weight)
+LM_ROUTE_GRAD_TOL = 1e-4
+LM_TRAIN_STEPS = 3
 # phase 11, the zoo: config.yml's seven models besides MM_Net and UM_Net,
 # f32, at config.yml's constructor settings and full width, seeded weights.
 # Each trains and serves at its dataset's protocol size: FCBFormer at the
@@ -831,39 +845,47 @@ def phase1_backward(gen) -> dict:
     def rn(*s, scale=1.0):
         return (torch.randn(*s, generator=gen) * scale).to(dev)
 
-    results = {"mamba_fused_scan_bwd": [], "tap_conv_bwd": []}
+    results = {"mamba_fused_scan_bwd": [], "mamba_fused_scan_bwd_lm": [], "tap_conv_bwd": []}
     failed = []
 
-    def run(kind, shape, fn, ref, inputs, dout, names, dtype, plain_reps, work):
+    def run(kind, shape, fn, ref, inputs, dout, names, dtype, plain_reps, work, into=None):
         out, live, got = grads_of(fn, inputs, dout)
         torch.cuda.synchronize()
         outp, livep, want = grads_of(ref, inputs, dout)
         torch.cuda.synchronize()
         errs, ok = compare_grads(got, want, names, BWD_TOL[dtype])
-        ms = cuda_ms(lambda: torch.autograd.grad(out, live, dout, retain_graph=True), reps=10)
+        call = lambda: torch.autograd.grad(out, live, dout, retain_graph=True)  # noqa: E731
+        ms = cuda_ms(call, reps=10)
+        kms = {"kernel_ms": kernel_device_ms(call, BWD_KERNELS)} if kind.startswith("mamba") else {}
         plain_ms = cuda_ms(lambda: torch.autograd.grad(outp, livep, dout, retain_graph=True),
                            reps=plain_reps, warmup=0)
         bms, by = bound(*work)
         rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(e for e, _ in errs.values()),
                    rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype], errs=errs,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ok=ok)
+                   ms=ms, **kms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ok=ok)
         print(f"phase1 {kind} {json.dumps(rec)}", flush=True)
-        results[kind].append(rec)
+        results[into or kind].append(rec)
         failed.extend([] if ok else [rec])
 
-    # the same shapes as the forward comparison
-    for D, R, L in ((128, 4, 16384), (6, 1, 65536)):
-        N, W, B = 16, 4, 2
+    # the same shapes as the forward comparison, then the Mamba LM's
+    # (mamba-130m's d_inner 1536, dt_rank 48, at the scoring batch 4 x
+    # 2048), whose chunk spans a cluster of channel blocks; each line with
+    # kernel 2's plan and its passes' resident blocks per SM
+    for D, R, L, B, revs in ((128, 4, 16384, 2, (False, True)), (6, 1, 65536, 2, (False, True)),
+                             (1536, 48, 2048, 4, (False,))):
+        N, W = 16, 4
         xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
         dout = rn(B, 1, D, L)
         names = ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"]
         for dtype in (torch.float32, torch.bfloat16):
-            for rev in (False, True):
-                run("mamba_fused_scan_bwd", dict(D=D, L=L, B=B, reverse=rev),
+            for rev in revs:
+                run("mamba_fused_scan_bwd", dict(D=D, R=R, L=L, B=B, reverse=rev,
+                                                 **bwd_plan(D, R, N, dtype)),
                     lambda *a, r=rev: mamba_fused_scan(*a, reverse=r),
                     lambda *a, r=rev: mamba_fused_scan_ref(*a, reverse=r),
                     [xz.to(dtype), *w], dout.to(dtype), names, dtype, plain_reps=1,
-                    work=mamba_work(B, D, L, N, R, W, dout.to(dtype).element_size(), True))
+                    work=mamba_work(B, D, L, N, R, W, dout.to(dtype).element_size(), True),
+                    into="mamba_fused_scan_bwd_lm" if D == 1536 else None)
         del xz, dout
     for hw, C, F, K in ((128, 64, 64, 3), (16, 512, 512, 3), (256, 64, 16, 3), (64, 128, 64, 1)):
         B = 8
@@ -1032,6 +1054,26 @@ def fwd_blocks_per_sm(D: int, R: int, N: int, dtype) -> list:
     return list(out)
 
 
+def bwd_plan(D: int, R: int, N: int, dtype) -> dict:
+    """Kernel 2's launch for this shape (`_bwd_plan`: chunk length T, nb
+    blocks of Dc channels a chunk) and, by the CUDA runtime's occupancy
+    calculator, the resident blocks per SM of its passes X, A and C and the
+    clusters of pass C the card holds at once."""
+    import ctypes
+
+    from mm_unet_tpu_torch import _build
+    from mm_unet_tpu_torch.ops.mamba_fused import _bwd_plan
+
+    plan = _bwd_plan(D, R + 2 * N, N)
+    out = (ctypes.c_int * 4)()
+    err = _build.library().mamba_fused_bwd_blocks_per_sm(
+        D, R, N, plan["T"], plan["Dc"], int(dtype == torch.bfloat16), out)
+    _build.check(err, "mamba_fused_bwd_blocks_per_sm")
+    return dict(T=plan["T"], Dc=plan["Dc"], nb=plan["nb"], blocks_per_sm=dict(
+        pass_x=out[0] if plan["nb"] > 1 else None, pass_a=out[1], pass_c=out[2]),
+        pass_c_clusters=out[3] if plan["nb"] > 1 else None)
+
+
 def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
                        check: bool = False) -> tuple[list, list]:
     """Kernels 1 and 2 alone at every shape that a train step gives them
@@ -1040,7 +1082,9 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
     `torch.autograd.grad` through it; each the mean of 3 calls after one
     (`ms`, CUDA events, host included) and the device time of its kernels in
     3 more (`kernel_ms`); random inputs made on the card. Kernel 1's lines
-    also carry the resident blocks per SM of its two chunk passes. Where
+    also carry the resident blocks per SM of its two chunk passes, kernel
+    2's its plan (T, nb blocks of Dc channels) and the resident blocks per
+    SM of its passes X, A and C (`bwd_plan`). Where
     the profiler records none of a kernel's launches, `kernel_ms` is the
     events time and the line says so (`kernel_ms_by`). With
     `check`, each shape's output is also held to `mamba_fused_scan_ref`'s on
@@ -1095,7 +1139,7 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
         bms, by = bound(*mamba_work(B, D, L, N, R, W, dout.element_size(), True))
         rec = dict(shape, ms=ms, kernel_ms=kms or ms, kernel_ms_by="profiler" if kms else "events",
                    bound_ms=bms, bound_by=by, launches_per_step=calls,
-                   **(checked if check else {}))
+                   **bwd_plan(D, R, N, x.dtype), **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_bwd_step {json.dumps(rec)}", flush=True)
         bwd.append(rec)
         failed += [] if rec.get("ok", True) else [rec]
@@ -2423,7 +2467,8 @@ def phase10_lm(seed: int) -> dict:
     peak memory, then the same weights on route b (kernel 5) against route
     a; (d) both decoders at each of LM_BATCHES: tokens/s, greedy and sampled
     tokens equal between them, and the teacher-forced step logits against
-    the forward's. Returns the kernel record and the launches."""
+    the forward's; (e) training on both routes (`phase10_lm_train`).
+    Returns the kernel record and the launches."""
     from mm_unet_tpu_torch.models.lm import (
         MAMBA_130M, _caches, generate, generate_scan, give_lm, token_step)
     from mm_unet_tpu_torch.models.mamba import Mamba
@@ -2564,9 +2609,86 @@ def phase10_lm(seed: int) -> dict:
                sampled_equal=same_sampled, sampling=LM_SAMPLING,
                sampled_share_off_greedy=left_greedy,
                teacher_forced_rel_err=step_err, tol=LM_DECODE_TOL, card=smi())
+    train = phase10_lm_train(lm, ids, rng, report)
     if failed:
         raise SystemExit(f"phase10 FAILED: {failed}")
-    return {"kernel": kernel, "launches": launches, "route_b_launches": launches_b}
+    return {"kernel": kernel, "launches": launches, "route_b_launches": launches_b,
+            "train": train}
+
+
+def phase10_lm_train(lm, ids, rng, report) -> dict:
+    """(e) The LM's training pass at mamba-130m's widths (the backbone's
+    output y, the loss (y * w).sum() of phase 13, backward) on route a and
+    on route b (every Mamba `scan_impl="pallas"`) with the same weights:
+    exact launches of kernels 1/2 (a) and 5/6 (b) per step, each route's
+    forward + backward tokens/s over LM_TRAIN_STEPS steps after a warm-up,
+    device ms and busy share of one profiled step and peak memory; then the
+    output and every parameter gradient, route a against route b, relative
+    to its own norm (LM_ROUTE_GRAD_TOL). Returns each route's launches."""
+    from mm_unet_tpu_torch.models.mamba import Mamba
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+
+    bb = lm.backbone
+    (B, L), d_model, n_layer = ids.shape, lm.d_model, len(bb.layers)
+    w = torch.from_numpy(rng.standard_normal((B, L, d_model)).astype(np.float32)).to(ids.device)
+    mambas = [m for m in bb.modules() if isinstance(m, Mamba)]
+    params = dict(bb.named_parameters())
+    counters = (mamba_fused_scan, selective_scan_chunked)
+
+    def step():
+        bb.zero_grad(set_to_none=True)
+        y = bb(ids)
+        (y * w).sum().backward()
+        return y.detach()
+
+    runs = {}
+    for route, impl in (("a", None), ("b", "pallas")):
+        for m in mambas:
+            m.scan_impl = impl
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = fn.bwd_launches = 0
+        y = step()
+        torch.cuda.synchronize()
+        launches = {"mamba_fused_scan": mamba_fused_scan.launches,
+                    "mamba_fused_scan_bwd": mamba_fused_scan.bwd_launches,
+                    "selective_scan": selective_scan_chunked.launches,
+                    "selective_scan_bwd": selective_scan_chunked.bwd_launches}
+        peak = torch.cuda.max_memory_allocated()
+        grads = {k: p.grad.clone() for k, p in params.items()}
+        t0 = time.perf_counter()
+        for _ in range(LM_TRAIN_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / LM_TRAIN_STEPS
+        prof = profile_step(f"lm train route {route}", step)
+        runs[route] = dict(y=y, grads=grads, numbers=dict(
+            launches=launches, tokens_per_s=B * L / wall, wall_ms=wall * 1e3,
+            device_ms=prof["device_ms"], busy_share=prof["busy_share"],
+            device_launches=prof["launches"], max_memory_allocated_bytes=peak))
+    for m in mambas:
+        m.scan_impl = None
+    a, b = runs["a"], runs["b"]
+    errs = {"y": ((a["y"] - b["y"]).norm() / b["y"].norm()).item()}
+    errs.update({k: ((a["grads"][k] - g).norm() / g.norm()).item()
+                 for k, g in b["grads"].items()})
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    finite = all(bool(torch.isfinite(t).all()) for r in runs.values()
+                 for t in (r["y"], *r["grads"].values()))
+    want = {"a": {"mamba_fused_scan": n_layer, "mamba_fused_scan_bwd": n_layer,
+                  "selective_scan": 0, "selective_scan_bwd": 0},
+            "b": {"mamba_fused_scan": 0, "mamba_fused_scan_bwd": 0,
+                  "selective_scan": n_layer, "selective_scan_bwd": n_layer}}
+    report("train routes", finite and worst[1] <= LM_ROUTE_GRAD_TOL
+           and all(runs[r]["numbers"]["launches"] == want[r] for r in runs),
+           batch=B, tokens=L, d_model=d_model, n_layer=n_layer,
+           route_a=a["numbers"], route_b=b["numbers"], expected=want,
+           y_rel_norm_err=errs["y"], worst_grad=list(worst), tensors=len(errs) - 1,
+           tol=LM_ROUTE_GRAD_TOL, card=smi())
+    return {r: runs[r]["numbers"]["launches"] for r in runs}
 
 
 # kernel-name fragments -> the layer that launched the kernel
@@ -3252,28 +3374,29 @@ def phase13_tp(seed: int) -> dict:
 def phase13_pp(seed: int) -> dict:
     """(d) `mixer_pipeline_forward` at one stage and 4 microbatches of
     phase 10's scoring batch (4 x 2048): mamba-130m's 24-layer MixerModel
-    (f32) forward, exactly 24 kernel-1 launches per microbatch, its output
-    against the model run straight through; then the same 24 layers at
-    d_model 384 (D 768), forward and backward, 24 kernel-1 and 24 kernel-2
-    launches per microbatch, output and the gradients of the embedding and
-    of the first and last Blocks' in_proj against the model straight
-    through. Kernel 2 takes no D past ~800 (its pass C keeps a chunk's D
-    channels whole: 430,720 B of shared memory at mamba-130m's D 1536), so
-    the LM trains on the card at half width. Returns the launches."""
+    (d_model 768, f32) forward, exactly 24 kernel-1 launches per
+    microbatch, its output against the model run straight through; then
+    the same 24 layers forward and backward, 24 kernel-1 and 24 kernel-2
+    launches per microbatch (kernel 2 at D 1536 splits each chunk's
+    channels over a cluster of blocks), output and the gradients of the
+    embedding and of the first and last Blocks' in_proj against the model
+    straight through. Returns the launches."""
     from mm_unet_tpu_torch.models.lm import MAMBA_130M, give_lm
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
     from mm_unet_tpu_torch.parallel.pp import mixer_pipeline_forward
 
     dev, (B, L), M = torch.device("cuda"), LM_SCORE, 4
+    d_model = MAMBA_130M["d_model"]
     rng = np.random.default_rng(seed + 132)
     ids = torch.from_numpy(rng.integers(0, MAMBA_130M["vocab_size"], (B, L))).to(dev)
     out, failed = {}, []
-    for d_model, train in ((768, False), (384, True)):
-        backbone = give_lm(dict(MAMBA_130M, d_model=d_model), device="cuda",
-                           generator=torch.Generator().manual_seed(seed)).backbone
-        w = torch.from_numpy(rng.standard_normal((B, L, d_model)).astype(np.float32)).to(dev)
-        names = ("embedding.weight", "layers.0.mixer.in_proj.weight",
-                 "layers.23.mixer.in_proj.weight")
+    backbone = give_lm(MAMBA_130M, device="cuda",
+                       generator=torch.Generator().manual_seed(seed)).backbone
+    w = torch.from_numpy(rng.standard_normal((B, L, d_model)).astype(np.float32)).to(dev)
+    names = ("embedding.weight", "layers.0.mixer.in_proj.weight", "layers.23.mixer.in_proj.weight")
+    params = dict(backbone.named_parameters())
+    for path, train in (("forward", False), ("train", True)):
+        backbone.zero_grad(set_to_none=True)
         mamba_fused_scan.launches = mamba_fused_scan.bwd_launches = 0
         t0 = time.perf_counter()
         with torch.set_grad_enabled(train):
@@ -3284,7 +3407,6 @@ def phase13_pp(seed: int) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"fwd": fwd, "bwd": mamba_fused_scan.bwd_launches}
-        params = dict(backbone.named_parameters())
         got = {k: params[k].grad.clone() for k in names} if train else {}
         y_pp = y.detach()
         del y
@@ -3304,12 +3426,14 @@ def phase13_pp(seed: int) -> dict:
             batch=[B, L], launches=launches, expected=want, max_abs_err=err, rel_err=rel,
             tol=PP_TOL, grad_rel_norm_errs=gerr, grad_tol=PP_GRAD_TOL, seconds=seconds,
             card=smi(), ok=ok)), flush=True)
-        failed.extend([] if ok else [d_model])
-        out[d_model] = launches
-        del backbone, y2, y_pp
+        failed.extend([] if ok else [path])
+        out[path] = launches
+        del y2, y_pp
+    del backbone
     if failed:
-        raise SystemExit(f"phase13 FAILED: pp at d_model {failed}")
-    return {"fwd": out[768]["fwd"] + out[384]["fwd"], "bwd": out[384]["bwd"], "by_width": out}
+        raise SystemExit(f"phase13 FAILED: pp {failed}")
+    return {"fwd": out["forward"]["fwd"] + out["train"]["fwd"], "bwd": out["train"]["bwd"],
+            "by_path": out}
 
 
 def phase13_ep_tools(seed: int) -> None:
@@ -3499,6 +3623,10 @@ def main() -> None:
                    if lm["launches"][name] == 0]
     unlaunched += [f"{name} (the LM's route-b forward)" for name in ("selective_scan",)
                    if lm["route_b_launches"][name] == 0]
+    unlaunched += [f"{name} (the LM's route-{r} training)" for r, names in (
+        ("a", ("mamba_fused_scan", "mamba_fused_scan_bwd")),
+        ("b", ("selective_scan", "selective_scan_bwd"))) for name in names
+        if lm["train"][r][name] == 0]
     unlaunched += [f"{name} (HWAUNETR {path})" for path, names in (
         ("serve", ("mamba_fused_scan",)), ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd")))
         for name in names if hwa["launches"]["by_path"][path][name] == 0]
@@ -3578,6 +3706,8 @@ def main() -> None:
                 "mm_unet_tpu/ops/mamba_fused.py:288", mm, **step_sums(bwd_steps),
                 **um_entry("mamba_fused_scan_bwd", um_bwd),
                 **hwa_entry("mamba_fused_scan_bwd", hwa["bwd_steps"]),
+                lm=dict(shapes=k["mamba_fused_scan_bwd_lm"],
+                        launches_per_train_step=lm["train"]["a"]["mamba_fused_scan_bwd"]),
                 parallel={"dp": par["dp"]["train"]["mamba_fused_scan_bwd"],
                           "pp": par["pp"]["bwd"]}),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",
@@ -3595,12 +3725,14 @@ def main() -> None:
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:128",
                 **step_sums(scan_fwd_steps, scan_keys),
                 lm_route_b={"launches_per_scoring_forward": lm["route_b_launches"][
+                    "selective_scan"], "launches_per_train_step": lm["train"]["b"][
                     "selective_scan"]},
                 parallel={"sp": par["sp"]["launches"]["fwd"], "tp": par["tp"]["fwd"]}),
         summary("selective_scan_bwd", "mm_unet_tpu_torch/csrc/selective_scan_bwd.cu",
                 "mm_unet_tpu/ops/pallas_scan.py:278", dk,
                 also_replaces="mm_unet_tpu/ops/pallas_scan.py:169",
                 **step_sums(scan_bwd_steps, scan_keys, scan_parts),
+                lm_route_b={"launches_per_train_step": lm["train"]["b"]["selective_scan_bwd"]},
                 parallel={"sp": par["sp"]["launches"]["bwd"], "tp": par["tp"]["bwd"]},
                 sp_dlast=[{k: r[k] for k in ("B", "Dm", "N", "L", "bwd_ms_with_dlast",
                                              "bwd_ms_without_dlast", "bound_ms", "bound_by",

@@ -41,9 +41,12 @@ _SIGNATURES = {
     # D, R, N, T, is_bf16, out (int[2]: resident blocks per SM of the two chunk passes)
     "mamba_fused_fwd_blocks_per_sm": [I32] * 5 + [VP],
     # xz, dout, dxz, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
-    # gcarry, dpre, p_dxp, p_ddtw, p_ddtb, p_dA, p_dD, p_dconv,
-    # B, G, D, L, N, R, W, T, conv_tile, reverse, is_bf16, stream
-    "mamba_fused_bwd": [VP] * 20 + [I32] * 11 + [VP],
+    # gcarry, dpre, xdbl, p_dxp, p_ddtw, p_ddtb, p_dA, p_dD, p_dconv,
+    # B, G, D, L, N, R, W, T, Dc, conv_tile, reverse, is_bf16, stream
+    "mamba_fused_bwd": [VP] * 21 + [I32] * 12 + [VP],
+    # D, R, N, T, Dc, is_bf16, out (int[4]: resident blocks per SM of passes X, A and C,
+    # and the clusters of pass C the card holds at once)
+    "mamba_fused_bwd_blocks_per_sm": [I32] * 6 + [VP],
     # feat, y, kernel, bias, shifts, out, B, H, W, C, F, K, is_bf16, stream
     "tap_conv_fwd": [VP] * 6 + [I32] * 7 + [VP],
     # feat, y, kernel, shifts, dout, dfeat, dy, dk, db, p_dk, p_db, B, H, W, C, F, K, ms,

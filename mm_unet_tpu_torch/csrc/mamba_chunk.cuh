@@ -56,37 +56,48 @@ __device__ __forceinline__ float conv_pre(const TI* x, const float* cw, float cb
   return acc;
 }
 
-// u_s [D][T] = round(silu(conv)), xd_s [R+2N][T] = x_proj @ u (the R dt
-// rows rounded), dt_s [D][T] = softplus(dt_proj @ x_dbl[:R] + dt_b); all
-// zero past L (an identity step of the scan). Each row takes T + 1 floats:
-// the odd row length puts neighbouring channels' rows, and the N state rows
-// read at one token, in distinct shared-memory banks. x_proj @ u is tiled
-// over registers (T even). Ends with __syncthreads().
+// u_s [nd][T] = round(silu(conv)) of the channels d0 .. d0 + nd - 1 (cw and
+// cb index the absolute channel, u_s the block's own rows), zero past L.
+// Each row takes T + 1 floats: the odd row length puts neighbouring
+// channels' rows, and the N state rows read at one token, in distinct
+// shared-memory banks.
 template <typename TI>
-__device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R, int N, int W,
-                                bool reverse, const float* cw, const float* cb, const float* xp,
-                                const float* dtw, const float* dtb, float* u_s, float* dt_s,
-                                float* xd_s) {
-  const int E = R + 2 * N, ld = T + 1;
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T, gt = t0 + t;
-    u_s[d * ld + t] = gt < L
+__device__ void conv_rows(const TI* x, int d0, int nd, int L, int T, int t0, int W, bool reverse,
+                          const float* cw, const float* cb, float* u_s) {
+  const int ld = T + 1;
+  for (int i = threadIdx.x; i < nd * T; i += blockDim.x) {
+    const int dl = i / T, t = i - dl * T, gt = t0 + t, d = d0 + dl;
+    u_s[dl * ld + t] = gt < L
         ? round_to<TI>(silu(conv_pre(x + (size_t)d * L, cw + d * W, cb[d], gt, L, W, reverse)))
         : 0.f;
   }
-  __syncthreads();
-  // a thread takes 4 rows of x_dbl and the tokens t and t + T / 2, so each
-  // weight and u value it reads feeds several products (a clamped row past
-  // the edge is read, not written)
-  const int Th = T / 2;
+}
+
+// xd_s [E][T] = x_proj[:, d0:d0+nd] @ u_s, continued from the sums xd_s
+// holds unless `first`; with `last`, the R dt rows are rounded. A thread
+// takes 4 rows and the tokens t and t + T / 2 (T even), so each weight and
+// u value it reads feeds several products (a clamped row past the edge is
+// read, not written); it keeps the same rows and tokens at every call, and
+// its sums run over the channels in order, so slices of the channels give
+// the sums of one pass over all of them, bit for bit.
+template <typename TI>
+__device__ void xproj_rows(int D, int d0, int nd, int T, int R, int E, const float* xp,
+                           const float* u_s, float* xd_s, bool first, bool last) {
+  const int ld = T + 1, Th = T / 2;
   for (int i = threadIdx.x; i < Th * ((E + 3) / 4); i += blockDim.x) {
     const int t = i % Th, e0 = i / Th * 4;
-    float a0[4] = {}, a1[4] = {};
-    for (int d = 0; d < D; ++d) {
-      const float u0 = u_s[d * ld + t], u1 = u_s[d * ld + t + Th];
+    float a0[4], a1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = min(e0 + j, E - 1);
+      a0[j] = first ? 0.f : xd_s[e * ld + t];
+      a1[j] = first ? 0.f : xd_s[e * ld + t + Th];
+    }
+    for (int dl = 0; dl < nd; ++dl) {
+      const float u0 = u_s[dl * ld + t], u1 = u_s[dl * ld + t + Th];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float wv = xp[(size_t)min(e0 + j, E - 1) * D + d];
+        const float wv = xp[(size_t)min(e0 + j, E - 1) * D + d0 + dl];
         a0[j] += wv * u0;
         a1[j] += wv * u1;
       }
@@ -95,21 +106,43 @@ __device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R,
     for (int j = 0; j < 4; ++j) {
       const int e = e0 + j;
       if (e >= E) break;
-      xd_s[e * ld + t] = e < R ? round_to<TI>(a0[j]) : a0[j];
-      xd_s[e * ld + t + Th] = e < R ? round_to<TI>(a1[j]) : a1[j];
+      const bool rnd = last && e < R;
+      xd_s[e * ld + t] = rnd ? round_to<TI>(a0[j]) : a0[j];
+      xd_s[e * ld + t + Th] = rnd ? round_to<TI>(a1[j]) : a1[j];
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T;
+}
+
+// dt_s [nd][T] = softplus(dt_proj[d0:d0+nd] @ x_dbl[:R] + dt_b), zero past L
+__device__ __forceinline__ void dt_rows(int d0, int nd, int L, int T, int t0, int R,
+                                        const float* dtw, const float* dtb, const float* xd_s,
+                                        float* dt_s) {
+  const int ld = T + 1;
+  for (int i = threadIdx.x; i < nd * T; i += blockDim.x) {
+    const int dl = i / T, t = i - dl * T, d = d0 + dl;
     float v = 0.f;
     if (t0 + t < L) {
       float acc = dtb[d];
       for (int r = 0; r < R; ++r) acc += dtw[d * R + r] * xd_s[r * ld + t];
       v = softplus(acc);
     }
-    dt_s[d * ld + t] = v;
+    dt_s[dl * ld + t] = v;
   }
+}
+
+// u_s [D][T] = round(silu(conv)), xd_s [R+2N][T] = x_proj @ u (the R dt
+// rows rounded), dt_s [D][T] = softplus(dt_proj @ x_dbl[:R] + dt_b); all
+// zero past L (an identity step of the scan). Ends with __syncthreads().
+template <typename TI>
+__device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R, int N, int W,
+                                bool reverse, const float* cw, const float* cb, const float* xp,
+                                const float* dtw, const float* dtb, float* u_s, float* dt_s,
+                                float* xd_s) {
+  conv_rows<TI>(x, 0, D, L, T, t0, W, reverse, cw, cb, u_s);
+  __syncthreads();
+  xproj_rows<TI>(D, 0, D, T, R, R + 2 * N, xp, u_s, xd_s, true, true);
+  __syncthreads();
+  dt_rows(0, D, L, T, t0, R, dtw, dtb, xd_s, dt_s);
   __syncthreads();
 }
 

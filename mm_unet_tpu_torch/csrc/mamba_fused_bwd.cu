@@ -17,23 +17,35 @@
 //
 // The TPU carries g, the edge decay and the neighbour chunk's dpre across a
 // sequential grid axis; Hopper blocks run in no order, so the design
-// mirrors the forward's three passes, one block per (batch, chunk of T
-// tokens):
-//   A. each block recomputes conv, x_proj and dt into shared memory and runs
-//      the adjoint across its chunk from a zero carry, emitting the boundary
-//      adjoint a_edge * g_edge per (d, n);
+// mirrors the forward's passes over chunks of T tokens (the forward's T),
+// and splits a chunk's D channels over nb blocks of Dc channels (nb = 1
+// for D <= 64 channels: MM_Net's offset Mambas):
+//   X. (nb > 1) one block per (batch, chunk) computes x_dbl = x_proj u into
+//      an f32 (B, G, E, L) scratch, streaming the D channels through shared
+//      memory Dc at a time (conv + SiLU of the slice, then its products);
+//      the only sum over channels of the recompute, done once per chunk;
+//   A. (more than one chunk) one block per (batch, chunk, channel block)
+//      recomputes the conv and dt of its channels (with nb = 1 also x_dbl),
+//      and runs the adjoint across the chunk from a zero carry, emitting the
+//      boundary adjoint a_edge * g_edge per (d, n);
 //   B. a small kernel walks the chunks against the scan direction per
 //      (b, d, n), turning the local boundary adjoints into true carries
 //      (a chunk's decay is exp(A * sum dt), the forward's saved sum);
-//   C. each block rebuilds h from the saved entry state, walks back with g
-//      from the true carry and accumulates every per-token and
-//      per-parameter term; then the projection products, dz, and dpre into
-//      an f32 (B, G, D, L) scratch;
+//   C. one block per (batch, chunk, channel block), the nb blocks of a
+//      chunk one thread-block cluster: each rebuilds h from the saved entry
+//      state, walks back with g from the true carry and accumulates every
+//      per-token and per-parameter term of its channels, and its partial of
+//      dx_dbl over its channels. The cluster sums the partials through
+//      distributed shared memory: each block sums a share of dx_dbl's
+//      elements over the cluster's blocks in rank order, then reads the
+//      other shares back from their owners. Then dz, the x_proj gradient of
+//      its channels, and dpre into an f32 (B, G, D, L) scratch;
 //   D. a depthwise kernel turns dpre into dx (including the W-1 tokens that
 //      cross each chunk edge) and the conv weight and bias gradients.
 // Parameter gradients are per-block partials in f32, summed by the wrapper
-// (as core_bwd sums over batch on the host): no global atomics, so every
-// gradient is the same from run to run.
+// (as core_bwd sums over batch on the host). Every sum has a fixed order
+// (no atomics, global or shared), so every gradient is the same from run
+// to run.
 //
 // What bounds it on the H100: not device memory (at D = 128 the bytes it
 // must move take about 2% of its time) but the shared-memory and shuffle traffic of pass C, issued
@@ -42,11 +54,11 @@
 // reads dt, u, dy, B and C and its terms must be summed over the N states
 // and over the channels. The design cuts that traffic three ways:
 //   - rows of T + 1 floats: every per-chunk row in shared memory has an odd
-//     length, so the N state lanes of a channel that read B or C, or add to
-//     dB or dC, at one token hit N distinct banks (rows of T floats put
-//     them in one bank: N-way conflicts on every token), as do neighbouring
-//     channels reading their rows at one token and the small products
-//     reading u across channels;
+//     length, so the N state lanes of a channel that read B or C at one
+//     token hit N distinct banks (rows of T floats put them in one bank:
+//     N-way conflicts on every token), as do neighbouring channels reading
+//     their rows at one token and the small products reading u across
+//     channels;
 //   - h in registers: pass C walks its chunk in sub-chunks of kS tokens. A
 //     first walk keeps the state entering each sub-chunk in shared memory,
 //     one column per thread; each sub-chunk's states and decays are rebuilt
@@ -58,26 +70,37 @@
 //     sum_n h C per token; a halving butterfly then sums them over the state
 //     group and leaves each lane the sums of its own tokens (kS - 1 shuffles
 //     per quantity where a sum per token takes kS log2 N), and those lanes
-//     write du, ddt and y_pre for kS tokens at once. The sums over the
-//     warp's channels stay per token (one shuffle level at N = 16), then one
-//     shared-memory atomic per (n, t) and warp.
+//     write du, ddt and y_pre for kS tokens at once. dB and dC, sums over
+//     the channels, are summed over a warp's channels per token by
+//     shuffles, left per warp in shared memory, and summed over the warps in
+//     warp order after each sub-chunk.
+// The channel split bounds a block's shared memory by Dc, not D, and with
+// 256 threads and at most 128 registers a thread two pass-C blocks fit on
+// an SM (__launch_bounds__(256, 2)): while one waits at a barrier or in its
+// small products, the other walks its chains. At MM_Net's widest scan (D =
+// 128, R = 4, N = 16, T = 64: nb = 2 blocks of 64 channels) pass C takes
+// 104 KB; at the Mamba LM's D = 1536 (E = 80, T = 16: 8 blocks of 192) 80 KB.
 // The small products (x_dbl = x_proj u, its transpose into dpre, and the
 // x_proj gradient) take kTile rows or tokens per thread, so a value read
-// from shared memory feeds several products. At MM_Net's widest scan (D =
-// 128, R = 4, N = 16, T = 64) pass C holds one 512-thread block per SM: 160
-// KB of shared memory and 128 registers a thread, both at the SM's limit.
+// from shared memory feeds several products.
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
 #include "common.cuh"
 #include "mamba_chunk.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using mmu::group_sum_scatter;
 using mmu::kAhead;
-using mmu::kS;            // tokens per sub-chunk of pass C, whose states live in registers
-constexpr int kTile = 4;  // rows (or tokens) per thread in pass C's small products
-constexpr int kMaxW = 8;  // widest conv
+using mmu::kS;                // tokens per sub-chunk of pass C, whose states live in registers
+constexpr int kTile = 4;      // rows (or tokens) per thread in pass C's small products
+constexpr int kMaxW = 8;      // widest conv
+constexpr int kThreads = 256;  // most threads of a block of passes X, A and C
+constexpr int kMaxCluster = 8;  // most blocks of a cluster (the portable size)
 
 struct BwdArgs {
   const void* xz;       // (B, G, 2D, L) stream dtype
@@ -94,6 +117,7 @@ struct BwdArgs {
   const float* dtsum;   // (B, G, nC, D) sum of dt per chunk (nC > 1)
   float* gcarry;        // (B, G, nC, D, N) boundary adjoints, then true carries
   float* dpre;          // (B, G, D, L) gradient of the conv pre-activation
+  float* xdbl;          // (B, G, R + 2N, L) x_dbl from pass X (nb > 1)
   float* p_dxp;         // (B*G*nC, R + 2N, D) partials
   float* p_ddtw;        // (B*G*nC, D, R)
   float* p_ddtb;        // (B*G*nC, D)
@@ -101,6 +125,7 @@ struct BwdArgs {
   float* p_dD;          // (B*G*nC, D)
   float* p_dconv;       // (B*G*nCT, D, W + 1): taps, then bias
   int B, G, D, L, N, R, W, T, nC;
+  int Dc, nb;           // channels per block of passes A and C, and blocks per chunk
   int conv_tile, nCT;   // tokens per block of the conv backward, and blocks
   bool reverse;
 };
@@ -116,47 +141,109 @@ __device__ __forceinline__ Row row_of(const BwdArgs& a, int g) {
           a.Dskip + (size_t)g * D};
 }
 
-// dy_s [D][T + 1] = dout * silu(z), 0 past L
+// waits of a cluster barrier split in two: after its arrive a block touches
+// no other block's shared memory, and it waits before it exits, so no block
+// leaves while another still reads its memory
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// dy_s [nd][T + 1] = dout * silu(z) of the channels d0 .. d0 + nd - 1, 0 past L
 template <typename TI>
-__device__ void load_dy(const BwdArgs& a, int bg, int t0, float* dy_s) {
+__device__ void load_dy(const BwdArgs& a, int bg, int t0, int d0, int nd, float* dy_s) {
   const int D = a.D, L = a.L, T = a.T;
-  const TI* z = static_cast<const TI*>(a.xz) + ((size_t)bg * 2 + 1) * D * L;
-  const TI* dout = static_cast<const TI*>(a.dout) + (size_t)bg * D * L;
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T, gt = t0 + t;
-    dy_s[d * (T + 1) + t] =
-        gt < L ? mmu::to_f32(dout[(size_t)d * L + gt]) * mmu::silu(mmu::to_f32(z[(size_t)d * L + gt]))
+  const TI* z = static_cast<const TI*>(a.xz) + (((size_t)bg * 2 + 1) * D + d0) * L;
+  const TI* dout = static_cast<const TI*>(a.dout) + ((size_t)bg * D + d0) * L;
+  for (int i = threadIdx.x; i < nd * T; i += blockDim.x) {
+    const int dl = i / T, t = i - dl * T, gt = t0 + t;
+    dy_s[dl * (T + 1) + t] =
+        gt < L ? mmu::to_f32(dout[(size_t)dl * L + gt]) * mmu::silu(mmu::to_f32(z[(size_t)dl * L + gt]))
                : 0.f;
   }
 }
 
-// Pass A: the adjoint across one chunk from a zero carry; emits a_edge g_edge.
+// The chunk's inputs of a block of passes A and C: the conv output and dt
+// of its nd channels from d0, and the chunk's x_dbl: recomputed whole by
+// the one block of a chunk (nb = 1, as the forward computes them), else
+// read from pass X's scratch (0 past L). Ends with __syncthreads().
 template <typename TI>
-__global__ void mamba_bwd_local_kernel(BwdArgs a) {
+__device__ void chunk_inputs(const BwdArgs& a, const Row& w, const TI* x, int bg, int t0, int d0,
+                             int nd, float* u_s, float* dt_s, float* xd_s) {
+  const int T = a.T, L = a.L, R = a.R, E = R + 2 * a.N, ld = T + 1;
+  if (a.nb == 1) {
+    mmu::recompute_chunk<TI>(x, a.D, L, T, t0, R, a.N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
+                             w.dtb, u_s, dt_s, xd_s);
+    return;
+  }
+  mmu::conv_rows<TI>(x, d0, nd, L, T, t0, a.W, a.reverse, w.cw, w.cb, u_s);
+  const float* xg = a.xdbl + (size_t)bg * E * L;
+  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
+    const int e = i / T, t = i - e * T, gt = t0 + t;
+    xd_s[e * ld + t] = gt < L ? xg[(size_t)e * L + gt] : 0.f;
+  }
+  __syncthreads();
+  mmu::dt_rows(d0, nd, L, T, t0, R, w.dtw, w.dtb, xd_s, dt_s);
+  __syncthreads();
+}
+
+// Pass X: x_dbl of one chunk over all D channels, Dc at a time, into the
+// scratch; the R dt rows rounded to the stream dtype. Each thread keeps the
+// same rows and tokens across the slices, so the sums run over the channels
+// in order as the forward's do.
+template <typename TI>
+__global__ void __launch_bounds__(kThreads) mamba_bwd_xdbl_kernel(BwdArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, N = a.N, R = a.R, ld = T + 1;
-  float* u_s = smem;
-  float* dt_s = u_s + D * ld;
-  float* xd_s = dt_s + D * ld;
-  float* dy_s = xd_s + (R + 2 * N) * ld;
+  const int D = a.D, T = a.T, L = a.L, R = a.R, E = R + 2 * a.N, ld = T + 1, Dc = a.Dc;
+  float* u_s = smem;            // [Dc] rows: the slice's conv output
+  float* xd_s = u_s + Dc * ld;  // [E] x_dbl sums
   const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
   const Row w = row_of(a, bg % a.G);
+  const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
+  for (int d0 = 0; d0 < D; d0 += Dc) {
+    const int nd = min(Dc, D - d0);
+    mmu::conv_rows<TI>(x, d0, nd, L, T, t0, a.W, a.reverse, w.cw, w.cb, u_s);
+    __syncthreads();
+    mmu::xproj_rows<TI>(D, d0, nd, T, R, E, w.xp, u_s, xd_s, d0 == 0, d0 + Dc >= D);
+    __syncthreads();
+  }
+  float* out = a.xdbl + (size_t)bg * E * L;
+  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
+    const int e = i / T, t = i - e * T, gt = t0 + t;
+    if (gt < L) out[(size_t)e * L + gt] = xd_s[e * ld + t];
+  }
+}
+
+// Pass A: the adjoint across one chunk from a zero carry, for the block's
+// channels; emits a_edge g_edge.
+template <typename TI>
+__global__ void __launch_bounds__(kThreads) mamba_bwd_local_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  const int D = a.D, T = a.T, N = a.N, R = a.R, ld = T + 1, Dc = a.Dc;
+  float* u_s = smem;
+  float* dt_s = u_s + Dc * ld;
+  float* xd_s = dt_s + Dc * ld;
+  float* dy_s = xd_s + (R + 2 * N) * ld;
+  const int k = blockIdx.x % a.nb, c = blockIdx.x / a.nb, bg = blockIdx.y, t0 = c * T;
+  const int d0 = k * Dc, nd = min(Dc, D - d0);
+  const Row w = row_of(a, bg % a.G);
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * a.L;
-  load_dy<TI>(a, bg, t0, dy_s);
-  mmu::recompute_chunk<TI>(x, D, a.L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
-                              w.dtb, u_s, dt_s, xd_s);
+  load_dy<TI>(a, bg, t0, d0, nd, dy_s);
+  chunk_inputs<TI>(a, w, x, bg, t0, d0, nd, u_s, dt_s, xd_s);
   const float* Cs = xd_s + (R + N) * ld;
-  const size_t sbase = (size_t)bg * a.nC + c;
-  for (int p = threadIdx.x; p < D * N; p += blockDim.x) {
-    const int d = p / N, n = p - d * N;
-    const float a_dn = w.A[p];
+  const size_t sbase = ((size_t)bg * a.nC + c) * D * N + (size_t)d0 * N;
+  for (int p = threadIdx.x; p < nd * N; p += blockDim.x) {
+    const int dl = p / N, n = p - dl * N;
+    const float a_dn = w.A[(size_t)d0 * N + p];
     float carry = 0.f;
     for (int s = 0; s < T; ++s) {
       const int t = a.reverse ? s : T - 1 - s;  // against the scan direction
-      const float g = dy_s[d * ld + t] * Cs[n * ld + t] + carry;
-      carry = expf(dt_s[d * ld + t] * a_dn) * g;
+      const float g = dy_s[dl * ld + t] * Cs[n * ld + t] + carry;
+      carry = expf(dt_s[dl * ld + t] * a_dn) * g;
     }
-    a.gcarry[sbase * D * N + p] = carry;
+    a.gcarry[sbase + p] = carry;
   }
 }
 
@@ -192,68 +279,75 @@ __global__ void __launch_bounds__(128) mamba_bwd_combine_kernel(BwdArgs a) {
   }
 }
 
-// Pass C: the full adjoint of one chunk and every term but the conv's.
+// Pass C: the full adjoint of one chunk for the block's channels and every
+// term but the conv's; the nb blocks of a chunk form a cluster that sums
+// dx_dbl over the channels.
 template <typename TI, int N>
-__global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) mamba_bwd_chunk_kernel(BwdArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, R = a.R, L = a.L;
-  const int E = R + 2 * N, ld = T + 1;  // rows of T + 1 floats
-  float* u_s = smem;            // [D] rows: conv output
-  float* dt_s = u_s + D * ld;   // [D] dt, overwritten by ddt_raw
-  float* xd_s = dt_s + D * ld;  // [E] x_dbl
-  float* dy_s = xd_s + E * ld;  // [D] dy, overwritten by y_pre
-  float* du_s = dy_s + D * ld;  // [D] du of the scan
-  float* xg_s = du_s + D * ld;  // [E] dx_dbl: R dt rows, then dB and dC
-  float* dB_s = xg_s + R * ld;
-  float* dC_s = dB_s + N * ld;
-  float* ck_s = dC_s + N * ld;  // [T / kS][blockDim] sub-chunk entry states
+  const int D = a.D, T = a.T, R = a.R, L = a.L, Dc = a.Dc, nb = a.nb;
+  const int E = R + 2 * N, ld = T + 1;    // rows of T + 1 floats
+  constexpr int kWarpRows = 2 * N * (kS + 1);  // a warp's dB and dC of one sub-chunk
+  float* u_s = smem;             // [Dc] rows: conv output
+  float* dt_s = u_s + Dc * ld;   // [Dc] dt, overwritten by ddt_raw
+  float* xd_s = dt_s + Dc * ld;  // [E] x_dbl
+  float* dy_s = xd_s + E * ld;   // [Dc] dy, overwritten by y_pre
+  float* du_s = dy_s + Dc * ld;  // [Dc] du of the scan
+  float* xg_s = du_s + Dc * ld;  // [E] dx_dbl: R dt rows, then dB and dC
+  float* dB_s = xg_s + R * ld;   // [2N] dB, then dC
+  float* ck_s = xg_s + E * ld;   // [T / kS][blockDim] sub-chunk entry states
+  float* wb_s = ck_s + (T / kS) * blockDim.x;  // [warps][2N][kS + 1] per-warp dB, dC
 
-  const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
+  const int k = blockIdx.x % nb, c = blockIdx.x / nb, bg = blockIdx.y, t0 = c * T;
+  const int d0 = k * Dc, nd = min(Dc, D - d0);
   const Row w = row_of(a, bg % a.G);
   const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
-  load_dy<TI>(a, bg, t0, dy_s);
+  load_dy<TI>(a, bg, t0, d0, nd, dy_s);
   for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = 0.f;
-  mmu::recompute_chunk<TI>(x, D, L, T, t0, R, N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
-                              w.dtb, u_s, dt_s, xd_s);
+  chunk_inputs<TI>(a, w, x, bg, t0, d0, nd, u_s, dt_s, xd_s);
 
   const float* Bs = xd_s + R * ld;
   const float* Cs = Bs + N * ld;
-  const int lane = threadIdx.x & 31, nsub = T / kS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int nsub = T / kS;
   constexpr int kNe = N < kS ? N : kS;  // lanes of a group that end with distinct sums
   constexpr int kRep = N / kNe;         // lanes that hold each of them
-  const size_t blk = (size_t)bg * a.nC + c;  // this chunk: states and partials
-  // every lane of a warp runs every walk (lanes past D * N with zero
-  // inputs), so the shuffles below always see the full warp
-  for (int p0 = 0; p0 < D * N; p0 += blockDim.x) {
+  const size_t blk = (size_t)bg * a.nC + c;           // this chunk: states and partials
+  const size_t sb = blk * D * N + (size_t)d0 * N;     // this block's chains in them
+  float* wb = wb_s + warp * kWarpRows;
+  // every lane of the block runs every walk (lanes past nd * N with zero
+  // inputs), so the shuffles always see the full warp and every thread
+  // reaches the barriers
+  for (int p0 = 0; p0 < nd * N; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
-    const bool live = p < D * N;
+    const bool live = p < nd * N;
     const int pp = live ? p : 0;
-    const int d = pp / N, n = pp - d * N;
-    const float* dt_d = dt_s + d * ld;
-    const float* u_d = u_s + d * ld;
-    const float a_dn = w.A[pp];
+    const int dl = pp / N, n = pp - dl * N, d = d0 + dl;
+    const float* dt_d = dt_s + dl * ld;
+    const float* u_d = u_s + dl * ld;
+    const float a_dn = w.A[(size_t)d * N + n];
     const float Dd = w.Dv[d];
     // walk 1, in scan order: the state entering each sub-chunk, into this
     // thread's column of ck_s
-    float h = live ? a.state[blk * D * N + pp] : 0.f;
-    for (int k = 0; k < nsub; ++k) {
-      ck_s[k * blockDim.x + threadIdx.x] = h;
+    float h = live ? a.state[sb + pp] : 0.f;
+    for (int kk = 0; kk < nsub; ++kk) {
+      ck_s[kk * blockDim.x + threadIdx.x] = h;
 #pragma unroll
       for (int j = 0; j < kS; ++j) {
-        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const int s = kk * kS + j, t = a.reverse ? T - 1 - s : s;
         const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
         h = expf(dtv * a_dn) * h + dtv * uv * Bs[n * ld + t];
       }
     }
-    float carry = (live && a.nC > 1) ? a.gcarry[blk * D * N + pp] : 0.f;
+    float carry = (live && a.nC > 1) ? a.gcarry[sb + pp] : 0.f;
     float dA_acc = 0.f, dD_acc = 0.f;
-    for (int k = nsub - 1; k >= 0; --k) {  // sub-chunks against the scan direction
+    for (int kk = nsub - 1; kk >= 0; --kk) {  // sub-chunks against the scan direction
       // rebuild the sub-chunk's states and decays into registers
       float hr[kS], ar[kS], pa[kS];
-      h = ck_s[k * blockDim.x + threadIdx.x];
+      h = ck_s[kk * blockDim.x + threadIdx.x];
 #pragma unroll
       for (int j = 0; j < kS; ++j) {
-        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const int s = kk * kS + j, t = a.reverse ? T - 1 - s : s;
         const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
         ar[j] = expf(dtv * a_dn);
         h = ar[j] * h + dtv * uv * Bs[n * ld + t];
@@ -263,9 +357,9 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
       // warp's channels at once, the sums over the states after the walk
 #pragma unroll
       for (int j = kS - 1; j >= 0; --j) {
-        const int s = k * kS + j, t = a.reverse ? T - 1 - s : s;
+        const int s = kk * kS + j, t = a.reverse ? T - 1 - s : s;
         const float dtv = live ? dt_d[t] : 0.f, uv = live ? u_d[t] : 0.f;
-        const float dyv = live ? dy_s[d * ld + t] : 0.f;
+        const float dyv = live ? dy_s[dl * ld + t] : 0.f;
         const float Bv = Bs[n * ld + t], Cv = Cs[n * ld + t];
         const float g = dyv * Cv + carry;
         const float gah = g * (hr[j] - dtv * uv * Bv);  // g * a * h_prev
@@ -274,9 +368,9 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
           vB += __shfl_xor_sync(0xffffffffu, vB, off);
           vC += __shfl_xor_sync(0xffffffffu, vC, off);
         }
-        if (lane < N) {  // lane == n for live lanes; a dead lane here adds 0
-          atomicAdd(&dB_s[lane * ld + t], vB);
-          atomicAdd(&dC_s[lane * ld + t], vC);
+        if (lane < N) {  // lane == n for live lanes; a dead warp leaves 0
+          wb[lane * (kS + 1) + j] = vB;
+          wb[(N + lane) * (kS + 1) + j] = vC;
         }
         dA_acc += gah * dtv;
         carry = ar[j] * g;
@@ -292,67 +386,106 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
       if (live && n % kRep == 0) {
 #pragma unroll
         for (int i = 0; i < kS / kNe; ++i) {
-          const int s = k * kS + n / kRep * (kS / kNe) + i, t = a.reverse ? T - 1 - s : s;
-          const float dtv = dt_d[t], uv = u_d[t], dyv = dy_s[d * ld + t];
+          const int s = kk * kS + n / kRep * (kS / kNe) + i, t = a.reverse ? T - 1 - s : s;
+          const float dtv = dt_d[t], uv = u_d[t], dyv = dy_s[dl * ld + t];
           dD_acc += dyv * uv;
-          du_s[d * ld + t] = dtv * ar[i] + dyv * Dd;
-          dt_s[d * ld + t] = (pa[i] + uv * ar[i]) * (-expm1f(-dtv));  // sigmoid(dt_raw)
-          dy_s[d * ld + t] = hr[i] + Dd * uv;                          // y_pre
+          du_s[dl * ld + t] = dtv * ar[i] + dyv * Dd;
+          dt_s[dl * ld + t] = (pa[i] + uv * ar[i]) * (-expm1f(-dtv));  // sigmoid(dt_raw)
+          dy_s[dl * ld + t] = hr[i] + Dd * uv;                          // y_pre
         }
       }
+      // the sub-chunk's dB and dC: the warps' sums, added in warp order
+      __syncthreads();
+      for (int i = threadIdx.x; i < 2 * N * kS; i += blockDim.x) {
+        const int r = i / kS, j = i - r * kS;
+        const int s = kk * kS + j, t = a.reverse ? T - 1 - s : s;
+        float v = 0.f;
+        for (int wi = 0; wi < nw; ++wi) v += wb_s[wi * kWarpRows + r * (kS + 1) + j];
+        dB_s[r * ld + t] += v;
+      }
+      __syncthreads();
     }
     for (int off = N / 2; off > 0; off >>= 1) dD_acc += __shfl_xor_sync(0xffffffffu, dD_acc, off);
     if (live) {
-      a.p_dA[blk * D * N + p] = dA_acc;
+      a.p_dA[sb + p] = dA_acc;
       if (n == 0) a.p_dD[blk * D + d] = dD_acc;
     }
   }
-  __syncthreads();
 
   const TI* z = x + (size_t)D * L;
   const TI* dout = static_cast<const TI*>(a.dout) + (size_t)bg * D * L;
   TI* dxz = static_cast<TI*>(a.dxz) + (size_t)bg * 2 * D * L;
   // dz = dout * y_pre * silu'(z), coalesced along L
-  for (int i = threadIdx.x; i < D * T; i += blockDim.x) {
-    const int d = i / T, t = i - d * T, gt = t0 + t;
+  for (int i = threadIdx.x; i < nd * T; i += blockDim.x) {
+    const int dl = i / T, t = i - dl * T, gt = t0 + t, d = d0 + dl;
     if (gt < L) {
       const float zv = mmu::to_f32(z[(size_t)d * L + gt]);
       const float sz = 1.f / (1.f + expf(-zv));
       const float dz =
-          mmu::to_f32(dout[(size_t)d * L + gt]) * dy_s[d * ld + t] * (sz + zv * sz * (1.f - sz));
+          mmu::to_f32(dout[(size_t)d * L + gt]) * dy_s[dl * ld + t] * (sz + zv * sz * (1.f - sz));
       dxz[(size_t)(D + d) * L + gt] = mmu::from_f32<TI>(dz);
     }
   }
   // dt_proj weight and bias partials (the weight's product takes the rounded ddt_raw)
-  for (int i = threadIdx.x; i < D * (R + 1); i += blockDim.x) {
-    const int d = i / (R + 1), r = i - d * (R + 1);
+  for (int i = threadIdx.x; i < nd * (R + 1); i += blockDim.x) {
+    const int dl = i / (R + 1), r = i - dl * (R + 1), d = d0 + dl;
     float acc = 0.f;
     if (r < R) {
-      for (int t = 0; t < T; ++t) acc += mmu::round_to<TI>(dt_s[d * ld + t]) * xd_s[r * ld + t];
+      for (int t = 0; t < T; ++t) acc += mmu::round_to<TI>(dt_s[dl * ld + t]) * xd_s[r * ld + t];
       a.p_ddtw[(blk * D + d) * R + r] = acc;
     } else {
-      for (int t = 0; t < T; ++t) acc += dt_s[d * ld + t];
+      for (int t = 0; t < T; ++t) acc += dt_s[dl * ld + t];
       a.p_ddtb[blk * D + d] = acc;
     }
   }
-  // dx_dbl = [dt_w^T ddt_raw; dB; dC], rounded to the stream dtype
+  // this block's partial of dx_dbl's R dt rows, dt_w^T ddt_raw over its channels
   for (int i = threadIdx.x; i < R * T; i += blockDim.x) {
     const int r = i / T, t = i - r * T;
     float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += w.dtw[d * R + r] * mmu::round_to<TI>(dt_s[d * ld + t]);
-    xg_s[r * ld + t] = mmu::round_to<TI>(acc);
+    for (int dl = 0; dl < nd; ++dl)
+      acc += w.dtw[(size_t)(d0 + dl) * R + r] * mmu::round_to<TI>(dt_s[dl * ld + t]);
+    xg_s[r * ld + t] = acc;
   }
-  for (int i = threadIdx.x; i < 2 * N * ld; i += blockDim.x) dB_s[i] = mmu::round_to<TI>(dB_s[i]);
+  // dx_dbl = [dt_w^T ddt_raw; dB; dC], summed over the channels and rounded
+  // to the stream dtype
+  if (nb == 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
+      const int e = i / T, o = e * ld + i - e * T;
+      xg_s[o] = mmu::round_to<TI>(xg_s[o]);
+    }
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int per = (E * T + nb - 1) / nb;  // elements each block sums
+    cluster.sync();                         // every block's partial is in its xg_s
+    for (int f = rank * per + threadIdx.x; f < min(E * T, (rank + 1) * per); f += blockDim.x) {
+      const int e = f / T, o = e * ld + f - e * T;
+      float v = 0.f;
+      for (int r = 0; r < nb; ++r) v += cluster.map_shared_rank(xg_s, r)[o];
+      xg_s[o] = mmu::round_to<TI>(v);
+    }
+    cluster.sync();  // every share summed by its owner
+    for (int f = threadIdx.x; f < E * T; f += blockDim.x) {
+      const int r = f / per;
+      if (r != rank) {
+        const int e = f / T, o = e * ld + f - e * T;
+        xg_s[o] = cluster.map_shared_rank(xg_s, r)[o];
+      }
+    }
+    cluster_arrive();
+  }
   __syncthreads();
-  // x_proj partial: dx_dbl @ u^T. A thread takes kTile rows of dx_dbl and
-  // the channels d and d + Dh, so each value it reads feeds several
-  // products (a clamped row or channel past the edge is read, not written)
-  const int Dh = (D + 1) / 2;
+  // x_proj partial: dx_dbl @ u^T over the block's channels. A thread takes
+  // kTile rows of dx_dbl and the channels dl and dl + Dh, so each value it
+  // reads feeds several products (a clamped row or channel past the edge
+  // is read, not written)
+  const int Dh = (nd + 1) / 2;
   for (int i = threadIdx.x; i < Dh * ((E + kTile - 1) / kTile); i += blockDim.x) {
-    const int d0 = i % Dh, e0 = i / Dh * kTile, d1 = min(d0 + Dh, D - 1);
+    const int dl0 = i % Dh, e0 = i / Dh * kTile, dl1 = min(dl0 + Dh, nd - 1);
     float acc0[kTile] = {}, acc1[kTile] = {};
     for (int t = 0; t < T; ++t) {
-      const float u0 = u_s[d0 * ld + t], u1 = u_s[d1 * ld + t];
+      const float u0 = u_s[dl0 * ld + t], u1 = u_s[dl1 * ld + t];
 #pragma unroll
       for (int j = 0; j < kTile; ++j) {
         const float xv = xg_s[min(e0 + j, E - 1) * ld + t];
@@ -363,19 +496,19 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
       if (e0 + j >= E) break;
-      float* out = a.p_dxp + (blk * E + e0 + j) * D;
-      out[d0] = acc0[j];
-      if (d0 + Dh < D) out[d0 + Dh] = acc1[j];
+      float* out = a.p_dxp + (blk * E + e0 + j) * D + d0;
+      out[dl0] = acc0[j];
+      if (dl0 + Dh < nd) out[dl0 + Dh] = acc1[j];
     }
   }
   // dpre = (x_proj^T dx_dbl + du) * silu'(pre), in token order; a thread
   // takes kTile tokens T / kTile apart of one channel, each weight read once
   const int W = a.W, Tq = T / kTile;
-  for (int i = threadIdx.x; i < D * Tq; i += blockDim.x) {
-    const int d = i / Tq, tq = i - d * Tq;
+  for (int i = threadIdx.x; i < nd * Tq; i += blockDim.x) {
+    const int dl = i / Tq, tq = i - dl * Tq, d = d0 + dl;
     float acc[kTile];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[j] = du_s[d * ld + tq + j * Tq];
+    for (int j = 0; j < kTile; ++j) acc[j] = du_s[dl * ld + tq + j * Tq];
     for (int e = 0; e < E; ++e) {
       const float wv = w.xp[(size_t)e * D + d];
 #pragma unroll
@@ -391,6 +524,7 @@ __global__ void __launch_bounds__(512) mamba_bwd_chunk_kernel(BwdArgs a) {
       a.dpre[((size_t)bg * D + d) * L + gt] = acc[j] * sp * (1.f + pre * (1.f - sp));
     }
   }
+  if (nb > 1) cluster_wait();
 }
 
 // Pass D: dx from dpre through the transposed taps, and per-block partials
@@ -441,40 +575,100 @@ __global__ void __launch_bounds__(256) mamba_bwd_conv_kernel(BwdArgs a) {
   }
 }
 
-// pass C for the state count N, a compile-time constant of its sums
-template <typename TI, int N>
-cudaError_t launch_chunk(const BwdArgs& a, dim3 grid, int threads, size_t smem,
-                         cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      mamba_bwd_chunk_kernel<TI, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) mamba_bwd_chunk_kernel<TI, N><<<grid, threads, smem, stream>>>(a);
-  return err;
+// the launch of passes A and C at these sizes: threads per block (one per
+// (channel, state) pair of a block, in whole warps, at most kThreads) and
+// each pass's f32 shared memory in bytes, as ops/mamba_fused.py::_bwd_plan
+// computes them
+struct Plan {
+  int nb, threads;
+  size_t smem_x, smem_a, smem_c;
+};
+
+Plan plan_of(int D, int R, int N, int T, int Dc) {
+  Plan p;
+  p.nb = (D + Dc - 1) / Dc;
+  const int pairs = Dc * N;
+  p.threads = pairs >= kThreads ? kThreads : ((pairs + 31) / 32) * 32;
+  const size_t E = R + 2 * N, ld = T + 1, f = sizeof(float);
+  p.smem_x = (Dc + E) * ld * f;
+  p.smem_a = (3 * Dc + E) * ld * f;
+  p.smem_c = ((4 * Dc + 2 * E) * ld + (size_t)(T / kS) * p.threads +
+              (size_t)(p.threads / 32) * 2 * N * (kS + 1)) * f;
+  return p;
 }
 
+using Kernel = void (*)(BwdArgs);
+
+// pass C for the state count N, a compile-time constant of its sums
 template <typename TI>
-int launch(const BwdArgs& a, int threads, size_t smem_local, size_t smem_chunk,
-           cudaStream_t stream) {
-  const dim3 grid(a.nC, a.B * a.G);
-  cudaError_t err;
+Kernel chunk_kernel(int N) {
+  switch (N) {
+    case 1: return mamba_bwd_chunk_kernel<TI, 1>;
+    case 2: return mamba_bwd_chunk_kernel<TI, 2>;
+    case 4: return mamba_bwd_chunk_kernel<TI, 4>;
+    case 8: return mamba_bwd_chunk_kernel<TI, 8>;
+    case 16: return mamba_bwd_chunk_kernel<TI, 16>;
+    default: return mamba_bwd_chunk_kernel<TI, 32>;
+  }
+}
+
+// passes X (nb > 1), A and B (more than one chunk), C and D; with
+// `occupancy` set, instead of a launch: the resident blocks per SM of
+// passes X, A and C, and the clusters of pass C the card holds at once (0
+// for nb = 1)
+template <typename TI>
+int run(const BwdArgs& a, cudaStream_t stream, int* occupancy) {
+  const Plan p = plan_of(a.D, a.R, a.N, a.T, a.Dc);
+  const Kernel xk = mamba_bwd_xdbl_kernel<TI>, ak = mamba_bwd_local_kernel<TI>;
+  const Kernel ck = chunk_kernel<TI>(a.N);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(xk, attr, (int)p.smem_x);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ak, attr, (int)p.smem_a);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(ck, attr, (int)p.smem_c);
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid(a.nb * a.nC, a.B * a.G);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem_c;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = a.nb;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (occupancy) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], xk, kThreads, p.smem_x);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[1], ak, p.threads, p.smem_a);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[2], ck, p.threads, p.smem_c);
+    occupancy[3] = 0;
+    if (err == cudaSuccess && a.nb > 1) err = cudaOccupancyMaxActiveClusters(&occupancy[3], ck, &cfg);
+    return err;
+  }
+  if (a.nb > 1) xk<<<dim3(a.nC, a.B * a.G), kThreads, p.smem_x, stream>>>(a);
   if (a.nC > 1) {
-    err = cudaFuncSetAttribute(mamba_bwd_local_kernel<TI>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_local);
-    if (err != cudaSuccess) return err;
-    mamba_bwd_local_kernel<TI><<<grid, threads, smem_local, stream>>>(a);
+    ak<<<grid, p.threads, p.smem_a, stream>>>(a);
     const int64_t chains = (int64_t)a.B * a.G * a.D * a.N;
     mamba_bwd_combine_kernel<<<(unsigned)((chains + 127) / 128), 128, 0, stream>>>(a);
   }
-  switch (a.N) {
-    case 1: err = launch_chunk<TI, 1>(a, grid, threads, smem_chunk, stream); break;
-    case 2: err = launch_chunk<TI, 2>(a, grid, threads, smem_chunk, stream); break;
-    case 4: err = launch_chunk<TI, 4>(a, grid, threads, smem_chunk, stream); break;
-    case 8: err = launch_chunk<TI, 8>(a, grid, threads, smem_chunk, stream); break;
-    case 16: err = launch_chunk<TI, 16>(a, grid, threads, smem_chunk, stream); break;
-    default: err = launch_chunk<TI, 32>(a, grid, threads, smem_chunk, stream); break;
+  if (a.nb > 1) {
+    err = cudaLaunchKernelEx(&cfg, ck, a);
+    if (err != cudaSuccess) return err;
+  } else {
+    ck<<<grid, p.threads, p.smem_c, stream>>>(a);
   }
-  if (err != cudaSuccess) return err;
   mamba_bwd_conv_kernel<TI><<<dim3(a.nCT, a.D, a.B * a.G), 256, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+bool valid(int D, int R, int N, int W, int T, int Dc) {
+  return T % kS == 0 && W <= kMaxW && N >= 1 && N <= 32 && !(N & (N - 1)) && R <= D && Dc >= 1 &&
+         (D + Dc - 1) / Dc <= kMaxCluster;
 }
 
 }  // namespace
@@ -483,10 +677,11 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
                                const void* conv_b, const void* x_proj, const void* dt_w,
                                const void* dt_b, const void* A, const void* Dskip,
                                const void* state, const void* dtsum, void* gcarry, void* dpre,
-                               void* p_dxp, void* p_ddtw, void* p_ddtb, void* p_dA, void* p_dD,
-                               void* p_dconv, int B, int G, int D, int L, int N, int R, int W,
-                               int T, int conv_tile, int reverse, int is_bf16, void* stream) {
-  if (T % kS || W > kMaxW || N > 32 || (N & (N - 1)) || R > D || conv_tile < 1)
+                               void* xdbl, void* p_dxp, void* p_ddtw, void* p_ddtb, void* p_dA,
+                               void* p_dD, void* p_dconv, int B, int G, int D, int L, int N, int R,
+                               int W, int T, int Dc, int conv_tile, int reverse, int is_bf16,
+                               void* stream) {
+  if (!valid(D, R, N, W, T, Dc) || conv_tile < 1 || (Dc < D && xdbl == nullptr))
     return cudaErrorInvalidValue;
   BwdArgs a;
   a.xz = xz;
@@ -503,6 +698,7 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
   a.dtsum = static_cast<const float*>(dtsum);
   a.gcarry = static_cast<float*>(gcarry);
   a.dpre = static_cast<float*>(dpre);
+  a.xdbl = static_cast<float*>(xdbl);
   a.p_dxp = static_cast<float*>(p_dxp);
   a.p_ddtw = static_cast<float*>(p_ddtw);
   a.p_ddtb = static_cast<float*>(p_ddtb);
@@ -511,17 +707,24 @@ extern "C" int mamba_fused_bwd(const void* xz, const void* dout, void* dxz, cons
   a.p_dconv = static_cast<float*>(p_dconv);
   a.B = B; a.G = G; a.D = D; a.L = L; a.N = N; a.R = R; a.W = W; a.T = T;
   a.nC = (L + T - 1) / T;
+  a.Dc = Dc < D ? Dc : D;
+  a.nb = (D + a.Dc - 1) / a.Dc;
   a.conv_tile = conv_tile;
   a.nCT = (L + conv_tile - 1) / conv_tile;
   a.reverse = reverse != 0;
-  // one thread per (channel, state) pair, in whole warps, at most 512
-  const int pairs = D * N;
-  const int threads = pairs >= 512 ? 512 : ((pairs + 31) / 32) * 32;
-  const int E = R + 2 * N;
-  const size_t smem_local = (size_t)(3 * D + E) * (T + 1) * sizeof(float);
-  const size_t smem_chunk =
-      ((size_t)(4 * D + 2 * E) * (T + 1) + (size_t)(T / kS) * threads) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, threads, smem_local, smem_chunk, st)
-                 : launch<float>(a, threads, smem_local, smem_chunk, st);
+  return is_bf16 ? run<__nv_bfloat16>(a, st, nullptr) : run<float>(a, st, nullptr);
+}
+
+// resident blocks per SM of passes X, A and C (out[0..2]) and the clusters
+// of pass C the card holds at once (out[3]) at the launch mamba_fused_bwd
+// makes for these sizes
+extern "C" int mamba_fused_bwd_blocks_per_sm(int D, int R, int N, int T, int Dc, int is_bf16,
+                                             int* out) {
+  if (!valid(D, R, N, 4, T, Dc)) return cudaErrorInvalidValue;
+  BwdArgs a = {};
+  a.D = D; a.R = R; a.N = N; a.T = T; a.B = 1; a.G = 1; a.nC = 1;
+  a.Dc = Dc < D ? Dc : D;
+  a.nb = (D + a.Dc - 1) / a.Dc;
+  return is_bf16 ? run<__nv_bfloat16>(a, nullptr, out) : run<float>(a, nullptr, out);
 }

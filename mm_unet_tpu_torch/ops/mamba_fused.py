@@ -58,15 +58,18 @@ def mamba_fused_scan_ref(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip,
 
 
 def _chunk_len(D: int, E: int) -> int:
-    """Tokens per block: the largest power of two in [16, 256] whose f32
-    shared-memory tile (u and dt for D channels, E x_dbl rows) fits 96 KB
-    for wide Mambas or 24 KB for narrow ones (many small blocks per SM, to
-    hide the scan's latency); a multiple of `_SUB_CHUNK`. It stops at 16,
-    so a wide enough Mamba's tile, (2 D + E) (T + 1) 4 bytes in the kernels
-    (`smem_for`), passes the budget: D 128 keeps two resident blocks per SM,
-    the Mamba LM's D 1536 (E 80) takes 214,336 B at T 16 and one block per
-    SM, and past the card's 227 KB opt-in (D > 1,669 at E 80) the launch is
-    refused and the wrapper raises with the shape."""
+    """Tokens per chunk of both kernels (the backward reads the forward's
+    chunk-entry states): the largest power of two in [16, 256] whose f32
+    shared-memory tile of the forward (u and dt for D channels, E x_dbl
+    rows) fits 96 KB for wide Mambas or 24 KB for narrow ones (many small
+    blocks per SM, to hide the scan's latency); a multiple of `_SUB_CHUNK`.
+    It stops at 16, so a wide enough Mamba's tile, (2 D + E) (T + 1) 4
+    bytes in the forward (`smem_for`), passes the budget: D 128 keeps two
+    resident forward blocks per SM, the Mamba LM's D 1536 (E 80) takes
+    214,336 B at T 16 and one block per SM, and past the card's 227 KB
+    opt-in (D > 1,669 at E 80) the forward's launch is refused and the
+    wrapper raises with the shape. The backward splits the channels over
+    blocks (`_bwd_plan`) and takes wider Mambas."""
     budget = (96 if D > 32 else 24) * 1024
     t = 256
     while t > 16 and (2 * D + E) * t * 4 > budget:
@@ -74,15 +77,53 @@ def _chunk_len(D: int, E: int) -> int:
     return t
 
 
-def _bwd_tile_bytes(D: int, E: int, N: int, T: int) -> int:
-    """The backward's pass C shared memory (csrc/mamba_fused_bwd.cu): rows
-    of T + 1 floats for u, dt, dy, du of D channels and x_dbl, dx_dbl of E
-    rows, and each thread's state at every sub-chunk's entry."""
-    threads = min(512, -(-D * N // 32) * 32)
-    return ((4 * D + 2 * E) * (T + 1) + T // _SUB_CHUNK * threads) * 4
-
-
 _SMEM_OPT_IN = 232448  # bytes of shared memory a block may take on the H100
+# the backward's blocks (csrc/mamba_fused_bwd.cu): at most _BWD_THREADS
+# threads in passes A and C (one per (channel, state) pair; `kThreads`),
+# _BWD_CHANNELS channels a block where a Mamba spans several, and at most
+# _BWD_CLUSTER blocks a chunk (one thread-block cluster of the portable size)
+_BWD_THREADS = 256
+_BWD_CHANNELS = 64
+_BWD_CLUSTER = 8
+
+
+def _bwd_plan(D: int, E: int, N: int) -> dict:
+    """The backward's launch for a Mamba of D channels, E = R + 2N x_dbl rows
+    and N states, as `plan_of` in csrc/mamba_fused_bwd.cu computes it: the
+    chunk length T (the forward's), nb blocks of Dc channels per chunk (nb
+    = 1 for D <= _BWD_CHANNELS: one block recomputes the whole chunk, as
+    before the split; else blocks of about _BWD_CHANNELS channels, wider
+    past the 8 blocks of a cluster at 512 channels), the threads
+    of a pass A or C block, and each pass's shared memory in bytes: rows of
+    T + 1 floats; pass X (nb > 1) a slice of Dc conv outputs and E x_dbl
+    rows, pass A u, dt, dy of Dc channels and x_dbl, pass C u, dt, dy, du
+    of Dc channels, x_dbl and dx_dbl, the states entering each sub-chunk
+    and each warp's dB and dC of a sub-chunk. Raises ValueError past the
+    widest D a cluster of shared-memory-bound blocks can take."""
+    T = _chunk_len(D, E)
+    nb = 1 if D <= _BWD_CHANNELS else min(_BWD_CLUSTER, -(-D // _BWD_CHANNELS))
+    Dc = -(-D // nb)
+    nb = -(-D // Dc)
+
+    def smem(Dc):
+        threads = min(_BWD_THREADS, -(-Dc * N // 32) * 32)
+        ld = T + 1
+        return threads, {
+            "x": (Dc + E) * ld * 4 if nb > 1 else 0,
+            "a": (3 * Dc + E) * ld * 4,
+            "c": ((4 * Dc + 2 * E) * ld + T // _SUB_CHUNK * threads
+                  + threads // 32 * 2 * N * (_SUB_CHUNK + 1)) * 4,
+        }
+
+    threads, nbytes = smem(Dc)
+    if max(nbytes.values()) > _SMEM_OPT_IN:
+        widest = max(c for c in range(1, Dc + 1) if max(smem(c)[1].values()) <= _SMEM_OPT_IN)
+        raise ValueError(
+            f"mamba_fused_scan backward: D {D} (E {E}, N {N}) needs {nb} blocks of {Dc} channels "
+            f"and {max(nbytes.values())} B of shared memory per block at T {T}, past the "
+            f"{_SMEM_OPT_IN} B a block can take: a cluster of {_BWD_CLUSTER} blocks of at most "
+            f"{widest} channels holds D <= {_BWD_CLUSTER * widest} at this E, N and T")
+    return dict(T=T, Dc=Dc, nb=nb, threads=threads, bytes=nbytes)
 
 
 def _tile_bytes(D: int, E: int, T: int) -> int:
@@ -145,16 +186,13 @@ def _launch_bwd(dout, xz, w, state, dtsum, reverse):
     D, R, N, W = D2 // 2, w[3].shape[2], w[5].shape[2], w[0].shape[2]
     E, sd, dev = R + 2 * N, xz.dtype, xz.device
     nC, nCT = state.shape[2], -(-L // _CONV_TILE)
-    T = _chunk_len(D, E)
-    if _bwd_tile_bytes(D, E, N, T) > _SMEM_OPT_IN:
-        raise ValueError(
-            f"mamba_fused_scan backward: D {D} (E {E}) needs {_bwd_tile_bytes(D, E, N, T)} B of "
-            f"shared memory per block in its pass C at T {T}, past the {_SMEM_OPT_IN} B a "
-            "block can take: the kernel keeps a chunk's D channels whole (ROADMAP.md)")
+    plan = _bwd_plan(D, E, N)
     dout = dout.to(sd).contiguous()
     dxz = torch.empty_like(xz)
     gcarry = torch.empty(Bsz, G, nC, D, N, device=dev)
     dpre = torch.empty(Bsz, G, D, L, device=dev)
+    # x_dbl of every chunk, from pass X, where a chunk spans several blocks
+    xdbl = torch.empty(Bsz, G, E, L, device=dev) if plan["nb"] > 1 else None
     p_dxp = torch.empty(Bsz, G, nC, E, D, device=dev)
     p_ddtw = torch.empty(Bsz, G, nC, D, R, device=dev)
     p_ddtb = torch.empty(Bsz, G, nC, D, device=dev)
@@ -164,12 +202,14 @@ def _launch_bwd(dout, xz, w, state, dtsum, reverse):
     err = _build.library().mamba_fused_bwd(
         xz.data_ptr(), dout.data_ptr(), dxz.data_ptr(), *(t.data_ptr() for t in w),
         state.data_ptr(), dtsum.data_ptr(), gcarry.data_ptr(), dpre.data_ptr(),
+        None if xdbl is None else xdbl.data_ptr(),
         p_dxp.data_ptr(), p_ddtw.data_ptr(), p_ddtb.data_ptr(), p_dA.data_ptr(),
-        p_dD.data_ptr(), p_dconv.data_ptr(), Bsz, G, D, L, N, R, W, T,
+        p_dD.data_ptr(), p_dconv.data_ptr(), Bsz, G, D, L, N, R, W, plan["T"], plan["Dc"],
         _CONV_TILE, int(reverse), int(sd == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"mamba_fused_bwd at B {Bsz}, G {G}, D {D}, L {L}, N {N}, R {R}, W {W}")
+    _build.check(err, f"mamba_fused_bwd at B {Bsz}, G {G}, D {D}, L {L}, N {N}, R {R}, W {W}, "
+                      f"T {plan['T']}, {plan['nb']} blocks of {plan['Dc']} channels a chunk")
     mamba_fused_scan.bwd_launches += 1
     dconv = p_dconv.sum((0, 2))  # the host sums over batch and blocks, as core_bwd
     return (dxz, dconv[..., :W], dconv[..., W], p_dxp.sum((0, 2)), p_ddtw.sum((0, 2)),

@@ -155,16 +155,21 @@ def _close_grads(got, want, dtype, names):
     (6, 1, 16, 100), (128, 4, 16, 50),    # one chunk
     (2, 1, 16, 1000),   # chunks of 128: L ragged against the chunk and the 16-token sub-chunk
     (96, 6, 16, 300),   # chunks of 64, dkDualNet's narrowest route-a width
-    (384, 12, 16, 200),  # chunks of 16 = one sub-chunk, 12 rounds of (d, n) pairs
+    (384, 12, 16, 200),  # chunks of 16 = one sub-chunk, 6 blocks of 64 channels, 4 rounds
     (8, 1, 8, 500),     # four channels per warp
     (8, 1, 32, 500),    # one channel per warp
-    (96, 6, 16, 37),    # one chunk, ragged
+    (96, 6, 16, 37),    # one chunk, ragged, 2 blocks of 48 channels
+    (48, 3, 16, 300),   # one block of 48 channels, 3 rounds
+    (130, 5, 16, 300),  # 3 blocks of 44 channels (the last 42): a third round mostly idle
+    (160, 5, 8, 500),   # 3 blocks of 54 channels at 8 states, 2 rounds
+    (72, 3, 32, 300),   # 2 blocks of 36 channels at 32 states, 5 rounds
 ])
 def test_mamba_fused_backward_matches_plain(D, R, N, L, reverse, dtype):
     """Several chunks and a single chunk (no combine pass: the forward must
     leave a zero entry state for the backward to read); the edges of pass
     C's layout: state counts of 8 and 32, widths 2 to 384, tokens that end
-    inside a sub-chunk."""
+    inside a sub-chunk; a chunk whole in one block (D <= 16) and split over
+    a cluster of channel blocks, unevenly at D 130."""
     dev = _device()
     rng = np.random.default_rng(D * L + reverse + (N != 16) * N)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
@@ -180,6 +185,55 @@ def test_mamba_fused_backward_matches_plain(D, R, N, L, reverse, dtype):
     want = _grads(lambda *a: mamba_fused_scan_ref(*a, reverse=reverse), args, dout)
     assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
     _close_grads(got, want, dtype, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"])
+
+
+def _lm_width_inputs(dev, dtype, L=300, B=2):
+    """Kernel 2's inputs at the Mamba LM's d_inner (mamba-130m: D 1536,
+    dt_rank 48): chunks of 16 tokens, each split over a cluster of 8 blocks
+    of 192 channels; 300 tokens end inside a chunk."""
+    rng = np.random.default_rng(1537)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    D, R, N, W = 1536, 48, 16, 4
+    xz = torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype)
+    args = [xz, f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
+            f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5), f(1, D)]
+    return args, f(B, 1, D, L).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_backward_at_the_lm_width(dtype):
+    dev = _device()
+    args, dout = _lm_width_inputs(dev, dtype)
+    got = _grads(mamba_fused_scan, args, dout)
+    want = _grads(mamba_fused_scan_ref, args, dout)
+    _close_grads(got, want, dtype, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,R,L", [(6, 1, 1000), (128, 4, 700), (1536, 48, 300)])
+def test_mamba_fused_backward_is_the_same_from_run_to_run(D, R, L, dtype):
+    """Every sum of kernel 2 has a fixed order (no atomics): two backward
+    calls on the same inputs give the same bits, for a chunk in one block,
+    and split over a cluster at D 128 and at the LM's width."""
+    dev = _device()
+    if D == 1536:
+        args, dout = _lm_width_inputs(dev, dtype, L)
+    else:
+        rng = np.random.default_rng(D + L)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+        N, W, B = 16, 4, 2
+        args = [torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype),
+                f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
+                f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5),
+                f(1, D)]
+        dout = f(B, 1, D, L).to(dtype)
+    first = _grads(mamba_fused_scan, args, dout)
+    second = _grads(mamba_fused_scan, args, dout)
+    for name, a, b in zip(["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"],
+                          first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -187,19 +187,69 @@ def test_wrappers_raise_off_cpu_and_cuda():
         mamba_fused_scan(*args)
 
 
-@pytest.mark.parametrize("name", ["MM_Net", "dkDualNet"])
+# every megakernel Mamba width (d_inner) the port builds, by model: MM_Net's
+# offset Mambas and RCG detours, dkDualNet's and HWAUNETR's stages, the
+# Mamba LM at mamba-130m's widths
+MEGA_WIDTHS = {"MM_Net": {2, 6, 128}, "dkDualNet": {96, 192, 384},
+               "HWAUNETR": {96, 192, 384, 768}, "mamba-130m": {1536}}
+
+
+def _check_bwd_plan(D, E, N):
+    """Kernel 2's plan for one width: every pass within the shared memory a
+    block can take, at most 16 blocks a cluster covering the D channels
+    with none empty, the forward's chunk of whole sub-chunks, and a chunk
+    whole in one block exactly for D <= _BWD_CHANNELS."""
+    from mm_unet_tpu_torch.ops.mamba_fused import (
+        _BWD_CHANNELS, _SMEM_OPT_IN, _SUB_CHUNK, _bwd_plan, _chunk_len)
+
+    plan = _bwd_plan(D, E, N)
+    T, Dc, nb = plan["T"], plan["Dc"], plan["nb"]
+    assert max(plan["bytes"].values()) <= _SMEM_OPT_IN, (D, plan)
+    assert 1 <= nb <= 16 and Dc * nb >= D > (nb - 1) * Dc, (D, plan)
+    assert T == _chunk_len(D, E) and T % _SUB_CHUNK == 0, (D, plan)
+    assert (nb == 1) == (D <= _BWD_CHANNELS) and (nb > 1 or Dc == D), (D, plan)
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256, (D, plan)
+    return plan
+
+
+@pytest.mark.parametrize("name", ["MM_Net", "dkDualNet", "HWAUNETR", "mamba-130m"])
 def test_chunk_lengths_split_into_backward_sub_chunks(name):
     """Every megakernel Mamba of the model gets a chunk of whole sub-chunks
     of the forward's pass 3 and the backward's pass C (which keep
-    `_SUB_CHUNK` tokens at a time in registers), within the kernels' range."""
+    `_SUB_CHUNK` tokens at a time in registers), within the kernels' range,
+    and a backward plan that fits (`_check_bwd_plan`). At MM_Net's D 128,
+    two pass-C blocks fit an SM's 228 KB of shared memory (and its
+    registers: 256 threads at most 128 registers each, the kernel's launch
+    bounds)."""
     from mm_unet_tpu_torch.models import give_model
+    from mm_unet_tpu_torch.models.lm import MAMBA_130M, give_lm
     from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.ops.mamba_fused import _SUB_CHUNK, _chunk_len
 
-    model = give_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
-    dims = {(m.d_inner, m.dt_rank + 2 * m.d_state) for m in model.modules()
+    if name == "mamba-130m":
+        model = give_lm(dict(MAMBA_130M, n_layer=1), device="cpu")
+    else:
+        model = give_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
+    dims = {(m.d_inner, m.dt_rank + 2 * m.d_state, m.d_state) for m in model.modules()
             if isinstance(m, Mamba) and m.use_mega}
-    assert dims, "no megakernel Mamba"
-    for D, E in sorted(dims):
+    assert {D for D, _, _ in dims} == MEGA_WIDTHS[name]
+    for D, E, N in sorted(dims):
         T = _chunk_len(D, E)
         assert 16 <= T <= 256 and T % _SUB_CHUNK == 0, (D, E, T)
+        plan = _check_bwd_plan(D, E, N)
+        if D == 128:
+            assert 2 * (plan["bytes"]["c"] + 1024) <= 228 * 1024 and plan["threads"] == 256
+
+
+def test_backward_plan_past_the_lm_width_and_its_limit():
+    """Kernel 2 takes D 2048 (mamba-370m's d_inner, E 96), which kernel 1
+    refuses; its limit is the widest block a cluster of 8 can take at the
+    shortest chunk: at E 80 (the LM's x_dbl rows), N 16 that is 8 x 746
+    channels, and one more raises with the shape."""
+    from mm_unet_tpu_torch.ops.mamba_fused import _bwd_plan
+
+    plan = _check_bwd_plan(2048, 96, 16)
+    assert (plan["T"], plan["Dc"], plan["nb"]) == (16, 256, 8)
+    assert _check_bwd_plan(5968, 80, 16)["Dc"] == 746
+    with pytest.raises(ValueError, match=r"D 5969 \(E 80, N 16\).*D <= 5968"):
+        _bwd_plan(5969, 80, 16)

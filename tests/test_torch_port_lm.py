@@ -19,6 +19,9 @@ Tolerances:
   ~3e-7 relative: the scan and the projections sum in other orders);
 - the decoders' step logits: within 1e-5 of the largest expected logit at
   every position (reading ~2e-7);
+- every parameter gradient of (logits * w).sum(): f32, 1e-5 * (1 + max
+  |jax|) (readings up to 6.5e-7: sums over tokens and channels in other
+  orders);
 - the JAX forward's own eps-1e-6 logits lie 1e-4 to 1e-2 of the largest
   logit from the corrected ones (reading ~3e-4), far outside the port's
   limit;
@@ -53,13 +56,14 @@ from mm_unet_tpu_torch.models.lm import (
 from mm_unet_tpu_torch.models.mamba import Block
 from mm_unet_tpu_torch.ops.causal_conv1d import causal_conv1d_update
 from mm_unet_tpu_torch.ops.state_update import selective_state_update
-from mm_unet_tpu_torch.utils.convert import lm_pairs
+from mm_unet_tpu_torch.utils.convert import jax_grads_to_torch, lm_pairs
 from torch_port_harness import assert_close, load_torch, sub_pairs, to_numpy
 
 N_LAYER, VOCAB, D_STATE = 2, 50, 16
 STEP_TOL = 1e-6
 MODEL_TOL = 2e-5
 DECODE_TOL = 1e-5
+GRAD_TOL = 1e-5
 # (rms_norm, fused_add_norm): the JAX default and mamba-130m's setting
 NORMS = [(False, False), (True, True)]
 
@@ -211,6 +215,41 @@ def test_greedy_tokens_are_the_forward_argmax(rms_norm, fused_add_norm):
     top2 = np.sort(want[:, 3:-1], -1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() > DECODE_TOL * np.abs(want).max()
     np.testing.assert_array_equal(tokens[:, 4:], want[:, 3:-1].argmax(-1))
+
+
+@pytest.mark.parametrize("rms_norm,fused_add_norm", NORMS)
+def test_lm_gradients_match_jax(rms_norm, fused_add_norm):
+    """Every parameter gradient of (logits * w).sum() at d_model 32, 2
+    layers, 2 x 64 tokens: autograd of the port against `jax.grad` of the
+    JAX model with its norm_f corrected to eps 1e-5 (the last Block's (h,
+    residual) from `capture_intermediates`, through norm_f and the tied head
+    in the loss), its gradients carried to the port's names by `lm_pairs`."""
+    jm, v, tm = _jax_lm(rms_norm, fused_add_norm, d_model=32)
+    rng = np.random.default_rng(13)
+    ids = rng.integers(0, VOCAB, (2, 64))
+    w = rng.standard_normal((2, 64, VOCAB)).astype(np.float32)
+
+    def loss(params):
+        _, state = jm.apply({**v, "params": params}, jnp.asarray(ids),
+                            capture_intermediates=True, mutable=["intermediates"])
+        h, res = state["intermediates"]["backbone"][f"layers_{N_LAYER - 1}"]["__call__"][0]
+        x, p = h + res, params["backbone"]["norm_f"]
+        if rms_norm:
+            y = x / jnp.sqrt(jnp.mean(x * x, -1, keepdims=True) + 1e-5) * p["scale"]
+        else:
+            mu = x.mean(-1, keepdims=True)
+            y = (x - mu) / jnp.sqrt(((x - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+            y = y * p["scale"] + p["bias"]
+        return jnp.sum(y @ params["backbone"]["embedding"]["embedding"].T * w)
+
+    want = jax_grads_to_torch(to_numpy(jax.grad(loss)(v["params"])),
+                              lm_pairs(N_LAYER, 32, rms_norm))
+    tm.train()
+    (tm(_t(ids)) * _t(w)).sum().backward()
+    got = dict(tm.named_parameters())
+    assert sorted(got) == sorted(want)
+    for name, g in want.items():
+        assert_close(got[name].grad.numpy(), g.numpy(), GRAD_TOL, name)
 
 
 def test_sampled_decoders_agree_token_for_token():
