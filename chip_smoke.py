@@ -22,10 +22,10 @@ any failure ends the run non-zero):
    on the card against the plain versions on the CPU, same weights; then
    the gradients of every parameter of an MM_Net with full-width channels
    and depths (1,1,1,1) in train mode, card against CPU, in f32 and with
-   the bf16 feature path (the tap-conv's tensor cores), with every
-   tap-conv call and every fused-scan call of the card's pass also held to
-   its plain version at its own inputs and output gradient (`TapCalls`,
-   `FusedCalls`);
+   the bf16 feature path (the tap-conv's tensor cores), in both passes with
+   every tap-conv call and every fused-scan call of the card's pass also
+   held to its plain version at its own inputs and output gradient
+   (`TapCalls`, `FusedCalls`);
 3. the serving path: full-width MM_Net in bf16 through `make_predictor`,
    512² sliding windows (overlap 0.5) over a synthetic DRIVE-like batch of 8
    and one 704² image, DiceFocal and the shared metrics through
@@ -96,8 +96,11 @@ any failure ends the run non-zero):
 10. the Mamba LM (`models/lm.py`) at mamba-130m's published widths (d_model
    768, 24 layers, vocabulary 50280, RMSNorm, fused add+norm; f32, seeded
    weights): (a) kernel 1 at the scoring shape (batch 4, D 1536, L 2048)
-   against its plain version, with its time, bound and resident blocks per
-   SM; (b) a depth-2 full-width model at 256 tokens, card against CPU; (c)
+   against its plain version, with its time, bound, plan and resident
+   blocks per SM, then its plan's launch (each chunk's channels in 6
+   blocks behind the x_dbl pass) against the whole-chunk launch in turns,
+   bits and times; (b) a depth-2 full-width model at 256 tokens, card
+   against CPU; (c)
    the scoring forward at 4 x 2048 tokens, exactly 24 kernel-1 launches,
    tokens/s, device time, busy share, peak memory, then the same weights on
    route b (kernel 5) against route a; (d) `generate` and `generate_scan`
@@ -107,7 +110,16 @@ any failure ends the run non-zero):
    24 layers at 4 x 2048) on route a (kernels 1/2) and on route b (kernels
    5/6) with the same weights, exact launches, tokens/s, device time, busy
    share and peak memory of each, the output and every parameter gradient
-   of a against b;
+   of a against b; then at mamba-370m's widths (d_model 1024, 48 layers,
+   d_inner 2048, dt_rank 64), where kernel 1 splits each chunk over 8
+   blocks: kernels 1 and 2 alone at the scoring shape (batch 4, D 2048, L
+   2048) in f32 and bf16 against their plain versions, with times, bounds,
+   plans and blocks per SM; a depth-2 model card against CPU; the 48-layer
+   scoring forward (exactly 48 kernel-1 launches, tokens/s, device time,
+   busy share, peak memory); the training pass on routes a and b, a
+   against b, as in (e); and AdamW steps of the whole model on route a
+   (next-token cross-entropy, 48 + 48 launches a step, finite and falling
+   losses, tokens/s, peak memory);
 11. the zoo: config.yml's other seven models (UNet, ConvUNeXt, CFPNet,
    UNETR, TransUNet, SWINUNETR, FCBFormer) through `give_model_from_config`
    at config.yml's settings and full width, f32, seeded weights: (a) each
@@ -161,7 +173,8 @@ any failure ends the run non-zero):
 
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (each kernel's time, its plain version's, its bound and its launches
-on the paths above; kernels 1 and 2 carry the LM's under `lm`, rows 1-2
+on the paths above; kernels 1 and 2 carry the LM's under `lm` and
+mamba-370m's under `lm_370m`, rows 1-2
 UM_Net's under `um_net` and HWAUNETR's under `hwaunetr`, the parallel
 paths' launches under `parallel`, kernel 8's times with and without the
 last state's gradient under `sp_dlast`), and
@@ -198,14 +211,19 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 MODEL_TOL = 2e-3
 # the fused Mamba and tap-conv backward kernels vs autograd of their plain
 # versions, per input gradient, in the same per-element form: f32 sums over
-# chunks, blocks and atomics in other orders (largest sound reading 5.2e-6);
+# chunks, blocks and atomics in other orders (largest sound reading 1.8e-5,
+# dA of kernel 2 at mamba-370m's D 2048, whose sums run over 16,384 chains
+# of 2,048 tokens; 9.4e-6 over phase 2's f32 fused-scan calls);
 # bf16 rounds the gradients at other points than the plain version's casts,
 # a few ulps (largest 3.5e-2, tap-conv's dfeat)
 BWD_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-1}
 # every parameter gradient of MM_Net at depth 1 in train mode, card vs CPU,
 # f32, relative to 1 + max |CPU|: the forward's differences (summation
 # orders, scan chunking) carried back through ~40-60 layers and batch
-# statistics over few values per channel at the deepest stage
+# statistics over few values per channel at the deepest stage. The RCG
+# Mambas' gradients are small against that scale, so the same pass holds
+# every tap-conv and fused-scan call to its plain version (`TapCalls`,
+# `FusedCalls` at TOL / BWD_TOL), which a single wrong call fails
 GRAD_TOL = 1e-2
 # dkDualNet, f32: the logits per element as `rel_err`, and every parameter
 # gradient relative to the largest |want| of its own tensor (the layer
@@ -1034,24 +1052,27 @@ def scan_step_shapes(model) -> tuple[dict, list]:
 
 # kernel-name fragments of each fused Mamba kernel's launches (kernel 2's
 # pass C is `mamba_bwd_chunk_kernel`, which holds neither forward fragment)
-FWD_KERNELS = ("mamba_chunk_kernel", "mamba_combine_kernel")
+FWD_KERNELS = ("mamba_chunk_kernel", "mamba_combine_kernel", "mamba_fwd_xdbl")
 BWD_KERNELS = ("mamba_bwd_",)
 
 
-def fwd_blocks_per_sm(D: int, R: int, N: int, dtype) -> list:
-    """Resident blocks per SM of kernel 1's two chunk passes (zero-state,
-    final) at the launch `mamba_fused_scan` makes for this shape, by the
-    CUDA runtime's occupancy calculator."""
+def fwd_plan(D: int, R: int, N: int, dtype) -> dict:
+    """Kernel 1's launch for this shape (`_fwd_plan`: chunk length T, nb
+    blocks of Dc channels a chunk) and, by the CUDA
+    runtime's occupancy calculator, the resident blocks per SM of its two
+    chunk passes (zero-state, final) and of pass X (nb > 1)."""
     import ctypes
 
     from mm_unet_tpu_torch import _build
-    from mm_unet_tpu_torch.ops.mamba_fused import _chunk_len
+    from mm_unet_tpu_torch.ops.mamba_fused import _fwd_plan
 
-    out = (ctypes.c_int * 2)()
+    plan = _fwd_plan(D, R + 2 * N, N)
+    out = (ctypes.c_int * 3)()
     err = _build.library().mamba_fused_fwd_blocks_per_sm(
-        D, R, N, _chunk_len(D, R + 2 * N), int(dtype == torch.bfloat16), out)
+        D, R, N, plan["T"], plan["Dc"], int(dtype == torch.bfloat16), out)
     _build.check(err, "mamba_fused_fwd_blocks_per_sm")
-    return list(out)
+    return dict(T=plan["T"], Dc=plan["Dc"], nb=plan["nb"], blocks_per_sm=[out[0], out[1]],
+                pass_x_blocks_per_sm=out[2] if plan["nb"] > 1 else None)
 
 
 def bwd_plan(D: int, R: int, N: int, dtype) -> dict:
@@ -1082,9 +1103,9 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
     `torch.autograd.grad` through it; each the mean of 3 calls after one
     (`ms`, CUDA events, host included) and the device time of its kernels in
     3 more (`kernel_ms`); random inputs made on the card. Kernel 1's lines
-    also carry the resident blocks per SM of its two chunk passes, kernel
-    2's its plan (T, nb blocks of Dc channels) and the resident blocks per
-    SM of its passes X, A and C (`bwd_plan`). Where
+    also carry its plan and the resident blocks per SM of its passes
+    (`fwd_plan`), kernel 2's its plan (T, nb blocks of Dc channels) and the
+    resident blocks per SM of its passes X, A and C (`bwd_plan`). Where
     the profiler records none of a kernel's launches, `kernel_ms` is the
     events time and the line says so (`kernel_ms_by`). With
     `check`, each shape's output is also held to `mamba_fused_scan_ref`'s on
@@ -1117,8 +1138,7 @@ def phase1_step_shapes(shapes: dict, seed: int, tag: str = "phase1",
         rec = dict(shape, ms=ms, kernel_ms=kms or ms,
                    kernel_ms_by="profiler" if kms else "events",
                    bound_ms=bms, bound_by=by, launches_per_step=calls,
-                   blocks_per_sm=fwd_blocks_per_sm(D, R, N, x.dtype),
-                   **(checked if check else {}))
+                   **fwd_plan(D, R, N, x.dtype), **(checked if check else {}))
         print(f"{tag} mamba_fused_scan_fwd_step {json.dumps(rec)}", flush=True)
         fwd.append(rec)
         failed += [] if rec.get("ok", True) else [rec]
@@ -1430,7 +1450,13 @@ def phase2_model(seed: int) -> None:
 def phase2_gradients(seed: int) -> None:
     """Every parameter gradient of one train-mode forward and backward, the
     kernels on the card against the plain versions on the CPU (whose scan
-    walks tokens one by one, hence the small depth and input)."""
+    walks tokens one by one, hence the small depth and input), relative to
+    1 + the largest gradient of the CPU (GRAD_TOL); and every tap-conv and
+    fused-scan call of the card's pass held to its plain version at its own
+    inputs and output gradient (`TapCalls`, `FusedCalls`; TOL, BWD_TOL),
+    where one wrong call fails however small the gradients it reaches (the
+    RCG Mambas' are, which the model-level check cannot see). The lines are
+    printed before a failure ends the run."""
     from mm_unet_tpu_torch.models import give_model
     from mm_unet_tpu_torch.train.losses import dice_focal_loss
 
@@ -1442,8 +1468,9 @@ def phase2_gradients(seed: int) -> None:
     x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(np.float32))
     y = torch.from_numpy((rng.random((2, 1, 64, 64)) < 0.2).astype(np.float32))
     t0 = time.perf_counter()
-    dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
-    torch.cuda.synchronize()
+    with TapCalls() as calls, FusedCalls() as fused:
+        dice_focal_loss(gpu_model(x.cuda()), y.cuda()).backward()
+        torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     dice_focal_loss(cpu_model(x), y).backward()
     t_cpu = time.perf_counter() - t0 - t_gpu
@@ -1453,8 +1480,11 @@ def phase2_gradients(seed: int) -> None:
     print("phase2 gradients " + json.dumps(dict(
         params=len(want), out_of_tol=bad, tol_relative=GRAD_TOL, worst=worst,
         gpu_s=t_gpu, cpu_s=t_cpu, ok=ok)), flush=True)
-    if not ok:
-        raise SystemExit("phase2 FAILED: card gradients disagree with the plain model's")
+    tap_ok = calls.check("phase2 f32 tap-conv calls")
+    fused_ok = fused.check("phase2 f32 fused-scan calls")
+    if not (ok and tap_ok and fused_ok):
+        raise SystemExit("phase2 FAILED: f32 card gradients disagree with the plain model's "
+                         f"(model {ok}, tap-conv calls {tap_ok}, fused-scan calls {fused_ok})")
 
 
 def phase2_bf16_gradients(seed: int) -> None:
@@ -2459,9 +2489,74 @@ def phase9_stream_waits(seed: int) -> None:
         raise SystemExit("phase9 FAILED: the loops wait on the whole stream")
 
 
+def lm_card_vs_cpu(cfg: dict, seed: int, rng, report) -> None:
+    """A depth-2 model at `cfg`'s full width (weights from `seed`) at 256
+    tokens from `rng`: the logits with the kernels on the card against the
+    plain versions on the CPU, per element as `rel_err` (LM_CPU_TOL)."""
+    from mm_unet_tpu_torch.models.lm import give_lm
+
+    cpu_lm = give_lm(dict(cfg, n_layer=2), device="cpu",
+                     generator=torch.Generator().manual_seed(seed))
+    gpu_lm = copy.deepcopy(cpu_lm).to("cuda")
+    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (1, 256)))
+    with torch.inference_mode():
+        got = gpu_lm(ids.cuda())
+        want = cpu_lm(ids)
+    err, rel = rel_err(got.cpu(), want)
+    report("depth-2 card vs cpu", bool(torch.isfinite(got).all()) and rel <= LM_CPU_TOL,
+           shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=LM_CPU_TOL)
+
+
+def lm_scoring(cfg: dict, seed: int, rng, report, tag: str) -> tuple:
+    """The LM of `cfg` built on the card (weights from `seed`) and its
+    scoring forward at LM_SCORE on tokens from `rng`, counted from zero:
+    exactly one kernel-1 launch per layer and none of kernel 5, tokens/s
+    over three forwards, device ms and operations, busy share and peak
+    memory (the `scoring` line; `tag` names its profile). Returns (the
+    model, the tokens, the logits, the launches)."""
+    from mm_unet_tpu_torch.models.lm import give_lm
+    from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+
+    (B, L), n_layer = LM_SCORE, cfg["n_layer"]
+    t0 = time.perf_counter()
+    lm = give_lm(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    t_build = time.perf_counter() - t0
+    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (B, L))).cuda()
+    per_fwd = lm.kernel_launches_per_forward()
+    with torch.inference_mode():
+        lm(ids)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mamba_fused_scan.launches = selective_scan_chunked.launches = 0
+        logits = lm(ids)
+        torch.cuda.synchronize()
+        launches = {"mamba_fused_scan": mamba_fused_scan.launches,
+                    "selective_scan": selective_scan_chunked.launches}
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lm(ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ops = call_device_ops(lambda: lm(ids), reps=2)
+        profile_step(f"{tag} scoring forward", lambda: lm(ids))
+    wall = sum(times) / len(times)
+    report("scoring", bool(torch.isfinite(logits).all())
+           and launches == {"mamba_fused_scan": n_layer, "selective_scan": 0}
+           and per_fwd == {"mamba_fused_scan": n_layer},
+           batch=B, tokens=L, logits=list(logits.shape), launches=launches, expected=per_fwd,
+           tokens_per_s=B * L / wall, wall_ms=wall * 1e3, device_ms=ops["device_ms"],
+           busy_share=ops["device_ms"] / (wall * 1e3), device_launches=ops["launches"],
+           max_memory_allocated_bytes=peak, build_s=t_build, card=smi())
+    return lm, ids, logits, launches
+
+
 def phase10_lm(seed: int) -> dict:
     """The Mamba LM (`models/lm.py`) at mamba-130m's published widths, f32:
-    (a) kernel 1 at the LM's shape against its plain version; (b) a depth-2
+    (a) kernel 1 at the LM's shape against its plain version, with its plan
+    (6 blocks of 256 channels behind pass X); (b) a depth-2
     full-width model, card against CPU; (c) the 24-layer scoring forward at
     LM_SCORE, exact kernel-1 launches, tokens/s, device time, busy share and
     peak memory, then the same weights on route b (kernel 5) against route
@@ -2470,7 +2565,7 @@ def phase10_lm(seed: int) -> dict:
     the forward's; (e) training on both routes (`phase10_lm_train`).
     Returns the kernel record and the launches."""
     from mm_unet_tpu_torch.models.lm import (
-        MAMBA_130M, _caches, generate, generate_scan, give_lm, token_step)
+        MAMBA_130M, _caches, generate, generate_scan, token_step)
     from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.ops.chunked_scan import selective_scan_chunked
     from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan, mamba_fused_scan_ref
@@ -2499,48 +2594,16 @@ def phase10_lm(seed: int) -> dict:
     bms, by = bound(*mamba_work(B, D, L, N, R, W, 4, False))
     kernel = dict(B=B, D=D, R=R, N=N, W=W, L=L, dtype="float32", max_abs_err=err, rel_err=rel,
                   tol=TOL[f32], ms=ms, kernel_ms=kms, plain_ms=plain_ms, bound_ms=bms,
-                  bound_by=by, blocks_per_sm=fwd_blocks_per_sm(D, R, N, f32))
+                  bound_by=by, **fwd_plan(D, R, N, f32))
     report("mamba_fused_scan", ok, **kernel, card=smi())
     del xz, w
 
-    # (b) the depth-2 full-width model, card against CPU
-    small = dict(cfg, n_layer=2)
-    cpu_lm = give_lm(small, device="cpu", generator=torch.Generator().manual_seed(seed))
-    gpu_lm = copy.deepcopy(cpu_lm).to(dev)
+    # (b) the depth-2 full-width model, card against CPU; (c) scoring, then
+    # the same weights on route b
     rng = np.random.default_rng(seed + 31)
-    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (1, 256)))
+    lm_card_vs_cpu(cfg, seed, rng, report)
+    lm, ids, logits, launches = lm_scoring(cfg, seed, rng, report, "lm")
     with torch.inference_mode():
-        got = gpu_lm(ids.to(dev))
-        want = cpu_lm(ids)
-    err, rel = rel_err(got.cpu(), want)
-    report("depth-2 card vs cpu", bool(torch.isfinite(got).all()) and rel <= LM_CPU_TOL,
-           shape=list(got.shape), max_abs_err=err, rel_err=rel, tol=LM_CPU_TOL)
-    del cpu_lm, gpu_lm, got, want
-
-    # (c) scoring: the 24-layer forward at B x L, counted from zero
-    t0 = time.perf_counter()
-    lm = give_lm(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
-    t_build = time.perf_counter() - t0
-    ids = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (B, L))).to(dev)
-    per_fwd = lm.kernel_launches_per_forward()
-    with torch.inference_mode():
-        lm(ids)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mamba_fused_scan.launches = selective_scan_chunked.launches = 0
-        logits = lm(ids)
-        torch.cuda.synchronize()
-        launches = {"mamba_fused_scan": mamba_fused_scan.launches,
-                    "selective_scan": selective_scan_chunked.launches}
-        peak = torch.cuda.max_memory_allocated()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            lm(ids)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        ops = call_device_ops(lambda: lm(ids), reps=2)
-        profile_step("lm scoring forward", lambda: lm(ids))
         mambas = [m for m in lm.modules() if isinstance(m, Mamba)]
         for m in mambas:
             m.scan_impl = "pallas"
@@ -2553,18 +2616,9 @@ def phase10_lm(seed: int) -> dict:
                       "selective_scan": selective_scan_chunked.launches}
         for m in mambas:
             m.scan_impl = None
-    wall = sum(times) / len(times)
     err_b, rel_b = rel_err(logits_b, logits)
-    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits_b).all())
-    n_layer = cfg["n_layer"]
-    report("scoring", finite and launches == {"mamba_fused_scan": n_layer, "selective_scan": 0}
-           and per_fwd == {"mamba_fused_scan": n_layer},
-           batch=B, tokens=L, logits=list(logits.shape), launches=launches, expected=per_fwd,
-           tokens_per_s=B * L / wall, wall_ms=wall * 1e3, device_ms=ops["device_ms"],
-           busy_share=ops["device_ms"] / (wall * 1e3), device_launches=ops["launches"],
-           max_memory_allocated_bytes=peak, build_s=t_build, card=smi())
-    report("scoring route b", finite and rel_b <= MM_ROUTE_LOGITS_TOL
-           and launches_b == {"mamba_fused_scan": 0, "selective_scan": n_layer},
+    report("scoring route b", bool(torch.isfinite(logits_b).all()) and rel_b <= MM_ROUTE_LOGITS_TOL
+           and launches_b == {"mamba_fused_scan": 0, "selective_scan": cfg["n_layer"]},
            launches=launches_b, logits_max_abs_err=err_b, logits_rel_err=rel_b,
            logits_tol=MM_ROUTE_LOGITS_TOL, wall_ms=t_b * 1e3)
     del logits, logits_b
@@ -2689,6 +2743,148 @@ def phase10_lm_train(lm, ids, rng, report) -> dict:
            y_rel_norm_err=errs["y"], worst_grad=list(worst), tensors=len(errs) - 1,
            tol=LM_ROUTE_GRAD_TOL, card=smi())
     return {r: runs[r]["numbers"]["launches"] for r in runs}
+
+
+def lm_kernels(seed: int, D: int, R: int, tag: str) -> dict:
+    """Kernels 1 and 2 alone at the Mamba LM's scoring shape (LM_SCORE) at
+    width D and dt_rank R, f32 and bf16: kernel 1 against its plain version
+    (TOL), kernel 2 against autograd of it (BWD_TOL), each input's gradient,
+    per element as `rel_err`; events ms, device ms, the plain version's ms,
+    the bound, and each kernel's plan with its passes' resident blocks per
+    SM. Prints a line per kernel and dtype; fails after all of them if one
+    disagrees. Returns {"fwd": [...], "bwd": [...]}."""
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan, mamba_fused_scan_ref
+
+    dev, (B, L), N, W = torch.device("cuda"), LM_SCORE, 16, 4
+    gen = torch.Generator().manual_seed(seed)
+    rn = lambda *sh, scale=1.0: (torch.randn(*sh, generator=gen) * scale).to(dev)  # noqa: E731
+    xz, w = mamba_inputs(rn, dev, B, D, R, L, N, W)
+    dout = rn(B, 1, D, L)
+    shape = dict(B=B, D=D, R=R, N=N, W=W, L=L)
+    out_recs, failed = {"fwd": [], "bwd": []}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        x, d = xz.to(dtype), dout.to(dtype)
+        call = lambda: mamba_fused_scan(x, *w)  # noqa: E731
+        with torch.no_grad():
+            err, rel, ok = compare(call(), mamba_fused_scan_ref(x, *w), dtype)
+            ms, kms = cuda_ms(call, reps=10), kernel_device_ms(call, FWD_KERNELS)
+            plain_ms = cuda_ms(lambda: mamba_fused_scan_ref(x, *w), reps=1)
+        bms, by = bound(*mamba_work(B, D, L, N, R, W, x.element_size(), False))
+        rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=err, rel_err=rel, tol=TOL[dtype],
+                   ms=ms, kernel_ms=kms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   **fwd_plan(D, R, N, dtype), ok=ok)
+        print(f"{tag} mamba_fused_scan {json.dumps(rec)}", flush=True)
+        out_recs["fwd"].append(rec)
+        failed += [] if ok else [rec]
+
+        out, live, got = grads_of(mamba_fused_scan, [x, *w], d)
+        outp, livep, want = grads_of(mamba_fused_scan_ref, [x, *w], d)
+        errs, ok = compare_grads(got, want, FusedCalls.NAMES, BWD_TOL[dtype])
+        del got, want
+        call = lambda: torch.autograd.grad(out, live, d, retain_graph=True)  # noqa: E731
+        ms, kms = cuda_ms(call, reps=10), kernel_device_ms(call, BWD_KERNELS)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(outp, livep, d, retain_graph=True),
+                           reps=1, warmup=0)
+        bms, by = bound(*mamba_work(B, D, L, N, R, W, d.element_size(), True))
+        rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(e for e, _ in errs.values()),
+                   rel_err=max(r for _, r in errs.values()), tol=BWD_TOL[dtype], errs=errs,
+                   ms=ms, kernel_ms=kms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   **bwd_plan(D, R, N, dtype), ok=ok)
+        print(f"{tag} mamba_fused_scan_bwd {json.dumps(rec)}", flush=True)
+        out_recs["bwd"].append(rec)
+        failed += [] if ok else [rec]
+        del out, live, outp, livep, x, d
+    if failed:
+        raise SystemExit(f"{tag} FAILED: {len(failed)} kernel comparisons out of tolerance")
+    return out_recs
+
+
+def phase10_lm_fit(lm, ids, report, tag: str) -> dict:
+    """One warm-up and LM_TRAIN_STEPS timed AdamW steps (config.yml's lr
+    1e-3, weight decay 0.05) of the whole LM on route a at `ids`' shape,
+    next-token cross-entropy over the tied head: exact launches of kernels
+    1 and 2 in the warm-up step (one of each per layer), finite losses, the
+    last below the first, tokens/s and peak memory. Returns the launches."""
+    import torch.nn.functional as F
+
+    from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
+    from mm_unet_tpu_torch.train.optim import build_optimizer
+
+    (B, L), n_layer = ids.shape, lm.n_layer
+    lm.train()
+    opt = build_optimizer(lm, "adamw", lr=1e-3, weight_decay=0.05)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = lm(ids[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mamba_fused_scan.launches = mamba_fused_scan.bwd_launches = 0
+    losses = [step()]
+    torch.cuda.synchronize()
+    launches = {"mamba_fused_scan": mamba_fused_scan.launches,
+                "mamba_fused_scan_bwd": mamba_fused_scan.bwd_launches}
+    t0 = time.perf_counter()
+    for _ in range(LM_TRAIN_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / LM_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    lm.eval()
+    del opt
+    want = {"mamba_fused_scan": n_layer, "mamba_fused_scan_bwd": n_layer}
+    report(f"{tag}train", launches == want and all(math.isfinite(v) for v in losses)
+           and losses[-1] < losses[0],
+           batch=B, tokens=L - 1, n_layer=n_layer, losses=losses, launches=launches,
+           expected=want, tokens_per_s=B * (L - 1) / wall, wall_ms=wall * 1e3,
+           max_memory_allocated_bytes=peak, card=smi())
+    return launches
+
+
+def phase10_lm_370m(seed: int) -> dict:
+    """The Mamba LM at mamba-370m's published widths (`MAMBA_370M`: d_model
+    1024, 48 layers, d_inner 2048, dt_rank 64; f32, seeded weights), where
+    kernel 1 splits each chunk's channels over 8 blocks behind pass X: (a)
+    kernels 1 and 2 alone at the scoring shape, f32 and bf16, against their
+    plain versions (`lm_kernels`); (b) a depth-2 full-width model, card
+    against CPU; (c) the 48-layer scoring forward at LM_SCORE, exactly 48
+    kernel-1 launches, tokens/s, device ms, busy share, peak memory; (d)
+    the training pass on routes a and b with the same weights, output and
+    every gradient a against b (`phase10_lm_train`); (e) AdamW steps on
+    route a (`phase10_lm_fit`). Returns the kernel records and the
+    launches of each path."""
+    from mm_unet_tpu_torch.models.lm import MAMBA_370M
+
+    cfg = MAMBA_370M
+    D, R = 2 * cfg["d_model"], math.ceil(cfg["d_model"] / 16)
+    failed = []
+
+    def report(tag, ok, **fields):
+        print(f"phase10 370m {tag} " + json.dumps(dict(**fields, ok=ok)), flush=True)
+        failed.extend([] if ok else [tag])
+
+    kernels = lm_kernels(seed + 40, D, R, "phase10 370m")
+
+    # (b) the depth-2 full-width model, card against CPU; (c) scoring
+    rng = np.random.default_rng(seed + 41)
+    lm_card_vs_cpu(cfg, seed, rng, report)
+    lm, ids, logits, launches = lm_scoring(cfg, seed, rng, report, "lm 370m")
+    del logits
+
+    # (d) the training pass on both routes, (e) AdamW steps on route a
+    train = phase10_lm_train(lm, ids, rng, report)
+    fit = phase10_lm_fit(lm, ids, report, "")
+    del lm
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"phase10 370m FAILED: {failed}")
+    return {"kernels": kernels, "launches": launches, "train": train, "fit": fit}
 
 
 # kernel-name fragments -> the layer that launched the kernel
@@ -3598,6 +3794,7 @@ def main() -> None:
     phase9_stream_waits(args.seed)
     print(f"phase9 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     lm = phase10_lm(args.seed)
+    lm370 = phase10_lm_370m(args.seed)
     print(f"phase10 done at {time.perf_counter() - t_all:.1f} s", flush=True)
     phase11_zoo(args.seed)
     print(f"phase11 done at {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -3627,6 +3824,10 @@ def main() -> None:
         ("a", ("mamba_fused_scan", "mamba_fused_scan_bwd")),
         ("b", ("selective_scan", "selective_scan_bwd"))) for name in names
         if lm["train"][r][name] == 0]
+    both = ("mamba_fused_scan", "mamba_fused_scan_bwd")
+    unlaunched += [f"{name} (mamba-370m {path})" for path, counts, names in (
+        ("scoring", lm370["launches"], both[:1]), ("route-a training", lm370["train"]["a"], both),
+        ("AdamW steps", lm370["fit"], both)) for name in names if counts[name] == 0]
     unlaunched += [f"{name} (HWAUNETR {path})" for path, names in (
         ("serve", ("mamba_fused_scan",)), ("train", ("mamba_fused_scan", "mamba_fused_scan_bwd")))
         for name in names if hwa["launches"]["by_path"][path][name] == 0]
@@ -3700,6 +3901,9 @@ def main() -> None:
                 **hwa_entry("mamba_fused_scan", hwa["fwd_steps"]),
                 lm=dict(lm["kernel"], launches_per_scoring_forward=lm["launches"][
                     "mamba_fused_scan"]),
+                lm_370m=dict(shapes=lm370["kernels"]["fwd"],
+                             launches_per_scoring_forward=lm370["launches"]["mamba_fused_scan"],
+                             launches_per_train_step=lm370["fit"]["mamba_fused_scan"]),
                 parallel={"dp": {p: par["dp"][p]["mamba_fused_scan"] for p in ("train", "val")},
                           "pp": par["pp"]["fwd"]}),
         summary("mamba_fused_scan_bwd", "mm_unet_tpu_torch/csrc/mamba_fused_bwd.cu",
@@ -3708,6 +3912,8 @@ def main() -> None:
                 **hwa_entry("mamba_fused_scan_bwd", hwa["bwd_steps"]),
                 lm=dict(shapes=k["mamba_fused_scan_bwd_lm"],
                         launches_per_train_step=lm["train"]["a"]["mamba_fused_scan_bwd"]),
+                lm_370m=dict(shapes=lm370["kernels"]["bwd"],
+                             launches_per_train_step=lm370["fit"]["mamba_fused_scan_bwd"]),
                 parallel={"dp": par["dp"]["train"]["mamba_fused_scan_bwd"],
                           "pp": par["pp"]["bwd"]}),
         summary("tap_conv", "mm_unet_tpu_torch/csrc/tap_conv_fwd.cu",

@@ -35,11 +35,12 @@ VP, I32 = ctypes.c_void_p, ctypes.c_int
 
 # C signatures of the entry points (all return int: a cudaError_t)
 _SIGNATURES = {
-    # xz, out, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
-    # B, G, D, L, N, R, W, T, reverse, is_bf16, stream
-    "mamba_fused_fwd": [VP] * 11 + [I32] * 10 + [VP],
-    # D, R, N, T, is_bf16, out (int[2]: resident blocks per SM of the two chunk passes)
-    "mamba_fused_fwd_blocks_per_sm": [I32] * 5 + [VP],
+    # xz, out, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum, xdbl,
+    # B, G, D, L, N, R, W, T, Dc, reverse, is_bf16, stream
+    "mamba_fused_fwd": [VP] * 12 + [I32] * 11 + [VP],
+    # D, R, N, T, Dc, is_bf16, out (int[3]: resident blocks per SM of the two chunk
+    # passes and of pass X)
+    "mamba_fused_fwd_blocks_per_sm": [I32] * 6 + [VP],
     # xz, dout, dxz, conv_w, conv_b, x_proj, dt_w, dt_b, A, Dskip, state, dtsum,
     # gcarry, dpre, xdbl, p_dxp, p_ddtw, p_ddtb, p_dA, p_dD, p_dconv,
     # B, G, D, L, N, R, W, T, Dc, conv_tile, reverse, is_bf16, stream

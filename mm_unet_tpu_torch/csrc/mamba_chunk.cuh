@@ -1,6 +1,7 @@
 // The per-chunk recompute shared by the fused Mamba forward and backward
 // kernels: causal depthwise conv + SiLU, x_proj and dt_proj + softplus for T
-// tokens of one (batch, group) row, into shared memory. Same formulas and
+// tokens of one (batch, group) row, into shared memory, and the x_dbl pass
+// that both run where a chunk's channels span several blocks. Same formulas and
 // bf16 rounding points as mm_unet_tpu/ops/mamba_fused.py::_conv_streams and
 // _proj_tiles.
 #pragma once
@@ -143,6 +144,55 @@ __device__ void recompute_chunk(const TI* x, int D, int L, int T, int t0, int R,
   xproj_rows<TI>(D, 0, D, T, R, R + 2 * N, xp, u_s, xd_s, true, true);
   __syncthreads();
   dt_rows(0, D, L, T, t0, R, dtw, dtb, xd_s, dt_s);
+  __syncthreads();
+}
+
+constexpr int kXdblThreads = 256;  // threads of a block of the x_dbl pass
+
+// The x_dbl pass of both kernels, where a chunk's channels span several
+// blocks: x_dbl of one chunk of one (batch, group) row over all D channels
+// into its (E, L) rows xg, the D channels streamed through shared memory Dc
+// at a time (u_s: conv + SiLU of a slice, xd_s: the E sums); the R dt rows
+// rounded to the stream dtype. x_dbl is the one sum over channels that the
+// chunk's scan chains need before they start. Each thread keeps the same
+// rows and tokens across the slices (`xproj_rows`), so the sums run over
+// the channels in order: the bits of `recompute_chunk`'s x_dbl, in the
+// forward and in the backward alike.
+template <typename TI>
+__device__ void xdbl_chunk(const TI* x, int D, int L, int T, int t0, int R, int E, int W, int Dc,
+                           bool reverse, const float* cw, const float* cb, const float* xp,
+                           float* u_s, float* xd_s, float* xg) {
+  const int ld = T + 1;
+  for (int d0 = 0; d0 < D; d0 += Dc) {
+    const int nd = min(Dc, D - d0);
+    conv_rows<TI>(x, d0, nd, L, T, t0, W, reverse, cw, cb, u_s);
+    __syncthreads();
+    xproj_rows<TI>(D, d0, nd, T, R, E, xp, u_s, xd_s, d0 == 0, d0 + Dc >= D);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
+    const int e = i / T, t = i - e * T, gt = t0 + t;
+    if (gt < L) xg[(size_t)e * L + gt] = xd_s[e * ld + t];
+  }
+}
+
+// The chunk's inputs of one of the blocks a chunk's channels span: the conv
+// output u_s and dt_s of its nd channels from d0, and the chunk's x_dbl
+// xd_s read from the x_dbl pass's rows xg (0 past L). Ends with
+// __syncthreads().
+template <typename TI>
+__device__ void split_inputs(const TI* x, const float* xg, int d0, int nd, int L, int T, int t0,
+                             int R, int N, int W, bool reverse, const float* cw, const float* cb,
+                             const float* dtw, const float* dtb, float* u_s, float* dt_s,
+                             float* xd_s) {
+  const int E = R + 2 * N, ld = T + 1;
+  conv_rows<TI>(x, d0, nd, L, T, t0, W, reverse, cw, cb, u_s);
+  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
+    const int e = i / T, t = i - e * T, gt = t0 + t;
+    xd_s[e * ld + t] = gt < L ? xg[(size_t)e * L + gt] : 0.f;
+  }
+  __syncthreads();
+  dt_rows(d0, nd, L, T, t0, R, dtw, dtb, xd_s, dt_s);
   __syncthreads();
 }
 

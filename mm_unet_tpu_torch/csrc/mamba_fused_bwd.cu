@@ -23,7 +23,8 @@
 //   X. (nb > 1) one block per (batch, chunk) computes x_dbl = x_proj u into
 //      an f32 (B, G, E, L) scratch, streaming the D channels through shared
 //      memory Dc at a time (conv + SiLU of the slice, then its products);
-//      the only sum over channels of the recompute, done once per chunk;
+//      the only sum over channels of the recompute, done once per chunk
+//      (`mmu::xdbl_chunk`, the forward's x_dbl pass too);
 //   A. (more than one chunk) one block per (batch, chunk, channel block)
 //      recomputes the conv and dt of its channels (with nb = 1 also x_dbl),
 //      and runs the adjoint across the chunk from a zero carry, emitting the
@@ -99,7 +100,7 @@ using mmu::kAhead;
 using mmu::kS;                // tokens per sub-chunk of pass C, whose states live in registers
 constexpr int kTile = 4;      // rows (or tokens) per thread in pass C's small products
 constexpr int kMaxW = 8;      // widest conv
-constexpr int kThreads = 256;  // most threads of a block of passes X, A and C
+constexpr int kThreads = 256;  // most threads of a block of passes A and C
 constexpr int kMaxCluster = 8;  // most blocks of a cluster (the portable size)
 
 struct BwdArgs {
@@ -168,52 +169,33 @@ __device__ void load_dy(const BwdArgs& a, int bg, int t0, int d0, int nd, float*
 // The chunk's inputs of a block of passes A and C: the conv output and dt
 // of its nd channels from d0, and the chunk's x_dbl: recomputed whole by
 // the one block of a chunk (nb = 1, as the forward computes them), else
-// read from pass X's scratch (0 past L). Ends with __syncthreads().
+// read from pass X's scratch (`mmu::split_inputs`). Ends with
+// __syncthreads().
 template <typename TI>
 __device__ void chunk_inputs(const BwdArgs& a, const Row& w, const TI* x, int bg, int t0, int d0,
                              int nd, float* u_s, float* dt_s, float* xd_s) {
-  const int T = a.T, L = a.L, R = a.R, E = R + 2 * a.N, ld = T + 1;
   if (a.nb == 1) {
-    mmu::recompute_chunk<TI>(x, a.D, L, T, t0, R, a.N, a.W, a.reverse, w.cw, w.cb, w.xp, w.dtw,
-                             w.dtb, u_s, dt_s, xd_s);
+    mmu::recompute_chunk<TI>(x, a.D, a.L, a.T, t0, a.R, a.N, a.W, a.reverse, w.cw, w.cb, w.xp,
+                             w.dtw, w.dtb, u_s, dt_s, xd_s);
     return;
   }
-  mmu::conv_rows<TI>(x, d0, nd, L, T, t0, a.W, a.reverse, w.cw, w.cb, u_s);
-  const float* xg = a.xdbl + (size_t)bg * E * L;
-  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
-    const int e = i / T, t = i - e * T, gt = t0 + t;
-    xd_s[e * ld + t] = gt < L ? xg[(size_t)e * L + gt] : 0.f;
-  }
-  __syncthreads();
-  mmu::dt_rows(d0, nd, L, T, t0, R, w.dtw, w.dtb, xd_s, dt_s);
-  __syncthreads();
+  mmu::split_inputs<TI>(x, a.xdbl + (size_t)bg * (a.R + 2 * a.N) * a.L, d0, nd, a.L, a.T, t0,
+                        a.R, a.N, a.W, a.reverse, w.cw, w.cb, w.dtw, w.dtb, u_s, dt_s, xd_s);
 }
 
-// Pass X: x_dbl of one chunk over all D channels, Dc at a time, into the
-// scratch; the R dt rows rounded to the stream dtype. Each thread keeps the
-// same rows and tokens across the slices, so the sums run over the channels
-// in order as the forward's do.
+// Pass X (`mmu::xdbl_chunk`): x_dbl of one chunk over all D channels, Dc at
+// a time, into the scratch, in the forward's summation order.
 template <typename TI>
-__global__ void __launch_bounds__(kThreads) mamba_bwd_xdbl_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(mmu::kXdblThreads) mamba_bwd_xdbl_kernel(BwdArgs a) {
   extern __shared__ float smem[];
-  const int D = a.D, T = a.T, L = a.L, R = a.R, E = R + 2 * a.N, ld = T + 1, Dc = a.Dc;
-  float* u_s = smem;            // [Dc] rows: the slice's conv output
-  float* xd_s = u_s + Dc * ld;  // [E] x_dbl sums
-  const int c = blockIdx.x, bg = blockIdx.y, t0 = c * T;
+  const int D = a.D, T = a.T, L = a.L, E = a.R + 2 * a.N, Dc = a.Dc;
+  const int c = blockIdx.x, bg = blockIdx.y;
   const Row w = row_of(a, bg % a.G);
-  const TI* x = static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L;
-  for (int d0 = 0; d0 < D; d0 += Dc) {
-    const int nd = min(Dc, D - d0);
-    mmu::conv_rows<TI>(x, d0, nd, L, T, t0, a.W, a.reverse, w.cw, w.cb, u_s);
-    __syncthreads();
-    mmu::xproj_rows<TI>(D, d0, nd, T, R, E, w.xp, u_s, xd_s, d0 == 0, d0 + Dc >= D);
-    __syncthreads();
-  }
-  float* out = a.xdbl + (size_t)bg * E * L;
-  for (int i = threadIdx.x; i < E * T; i += blockDim.x) {
-    const int e = i / T, t = i - e * T, gt = t0 + t;
-    if (gt < L) out[(size_t)e * L + gt] = xd_s[e * ld + t];
-  }
+  float* u_s = smem;                 // [Dc] rows: the slice's conv output
+  float* xd_s = u_s + Dc * (T + 1);  // [E] x_dbl sums
+  mmu::xdbl_chunk<TI>(static_cast<const TI*>(a.xz) + (size_t)bg * 2 * D * L, D, L, T, c * T,
+                      a.R, E, a.W, Dc, a.reverse, w.cw, w.cb, w.xp, u_s, xd_s,
+                      a.xdbl + (size_t)bg * E * L);
 }
 
 // Pass A: the adjoint across one chunk from a zero carry, for the block's
@@ -641,7 +623,8 @@ int run(const BwdArgs& a, cudaStream_t stream, int* occupancy) {
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   if (occupancy) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], xk, kThreads, p.smem_x);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], xk, mmu::kXdblThreads,
+                                                        p.smem_x);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[1], ak, p.threads, p.smem_a);
     if (err == cudaSuccess)
@@ -650,7 +633,7 @@ int run(const BwdArgs& a, cudaStream_t stream, int* occupancy) {
     if (err == cudaSuccess && a.nb > 1) err = cudaOccupancyMaxActiveClusters(&occupancy[3], ck, &cfg);
     return err;
   }
-  if (a.nb > 1) xk<<<dim3(a.nC, a.B * a.G), kThreads, p.smem_x, stream>>>(a);
+  if (a.nb > 1) xk<<<dim3(a.nC, a.B * a.G), mmu::kXdblThreads, p.smem_x, stream>>>(a);
   if (a.nC > 1) {
     ak<<<grid, p.threads, p.smem_a, stream>>>(a);
     const int64_t chains = (int64_t)a.B * a.G * a.D * a.N;

@@ -5,7 +5,8 @@ reference's `mixer_seq_simple.py` and `utils/generation.py`).
   one-direction `Mamba`, which takes the megakernel route, kernel 1, at
   d_state 16) and the final norm `norm_f`; `MambaLMHeadModel` adds the
   head tied to the embedding, `h @ embedding.weight.T`; `give_lm` builds
-  one from a reference config.json (mamba-130m's by default).
+  one from a reference config.json (mamba-130m's by default; `MAMBA_370M`
+  is mamba-370m's).
 - `mamba_step`: one token through one Block's mixer, with the rolling conv
   and SSM caches (`ops/causal_conv1d.py::causal_conv1d_update`,
   `ops/state_update.py::selective_state_update`).
@@ -45,8 +46,12 @@ from mm_unet_tpu_torch.models.mamba import Block, Mamba, kernel_launches
 from mm_unet_tpu_torch.ops.causal_conv1d import causal_conv1d_update
 from mm_unet_tpu_torch.ops.state_update import selective_state_update
 
-# state-spaces/mamba-130m's published config.json
+# state-spaces/mamba-130m's and mamba-370m's published config.json (370m:
+# d_inner 2048, dt_rank 64, x_dbl rows 96, d_state 16)
 MAMBA_130M = {"d_model": 768, "n_layer": 24, "vocab_size": 50277, "ssm_cfg": {},
+              "rms_norm": True, "residual_in_fp32": True, "fused_add_norm": True,
+              "pad_vocab_size_multiple": 8}
+MAMBA_370M = {"d_model": 1024, "n_layer": 48, "vocab_size": 50277, "ssm_cfg": {},
               "rms_norm": True, "residual_in_fp32": True, "fused_add_norm": True,
               "pad_vocab_size_multiple": 8}
 NORM_EPS = 1e-5  # the reference's norm_epsilon, for every Block and norm_f

@@ -112,3 +112,15 @@ class UNet(nn.Module):
         y = self.up3(y, x2)
         y = self.up4(y, x1)
         return self.outc.conv(y)
+
+
+def Unet(num_classes: int = 1, n_channels: int = 3, device: torch.device | str = "cuda",  # noqa: N802
+         generator: Optional[torch.Generator] = None) -> UNet:
+    """The reference's top-level mini pipeline's model (the root `model.py`):
+    the UNet above with transposed-conv ups (`bilinear=False`), which makes
+    it the mini `Unet` layer for layer, weights drawn from `generator`, on
+    `device` in eval mode: the card unless the caller asks for the CPU."""
+    from mm_unet_tpu_torch.models.registry import give_model
+
+    return give_model("UNet", device=device, generator=generator, n_channels=n_channels,
+                      num_classes=num_classes, bilinear=False)

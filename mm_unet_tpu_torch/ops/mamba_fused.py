@@ -9,7 +9,10 @@ kernels for CUDA tensors: `csrc/mamba_fused_fwd.cu` forward and, through a
 `torch.autograd.Function`, `csrc/mamba_fused_bwd.cu` backward from the
 chunk-entry states the forward kept. For CPU tensors it takes the plain
 `mamba_fused_scan_ref`, differentiated by autograd. `mamba_fused_scan.
-launches` and `.bwd_launches` count kernel launches.
+launches` and `.bwd_launches` count kernel launches. Both kernels cut L
+into chunks (`_chunk_len`) and, for wide Mambas, a chunk's channels into
+blocks behind a pass that computes x_dbl once per chunk (`_fwd_plan`,
+`_bwd_plan`).
 
 Under a bf16 stream both versions round where the TPU kernel rounds: the
 weights fed to the conv and the projections, the conv output, the dt rows of
@@ -63,13 +66,13 @@ def _chunk_len(D: int, E: int) -> int:
     shared-memory tile of the forward (u and dt for D channels, E x_dbl
     rows) fits 96 KB for wide Mambas or 24 KB for narrow ones (many small
     blocks per SM, to hide the scan's latency); a multiple of `_SUB_CHUNK`.
-    It stops at 16, so a wide enough Mamba's tile, (2 D + E) (T + 1) 4
-    bytes in the forward (`smem_for`), passes the budget: D 128 keeps two
-    resident forward blocks per SM, the Mamba LM's D 1536 (E 80) takes
-    214,336 B at T 16 and one block per SM, and past the card's 227 KB
-    opt-in (D > 1,669 at E 80) the forward's launch is refused and the
-    wrapper raises with the shape. The backward splits the channels over
-    blocks (`_bwd_plan`) and takes wider Mambas."""
+    It stops at 16, so a wide enough Mamba's whole-chunk tile, (2 D + E)
+    (T + 1) 4 bytes in the forward (`_tile_bytes`), passes the budget: D
+    128 keeps two resident forward blocks per SM; past two blocks' share of
+    an SM (D > 810 at E 80 and T 16; the Mamba LM's D 1536 would take
+    214,336 B, one block per SM, and D > 1,669 the card's 227 KB opt-in)
+    the forward splits a chunk's channels over blocks (`_fwd_plan`), as the
+    backward does (`_bwd_plan`)."""
     budget = (96 if D > 32 else 24) * 1024
     t = 256
     while t > 16 and (2 * D + E) * t * 4 > budget:
@@ -128,8 +131,57 @@ def _bwd_plan(D: int, E: int, N: int) -> dict:
 
 def _tile_bytes(D: int, E: int, T: int) -> int:
     """The forward's shared-memory tile: rows of T + 1 floats for u and dt
-    of D channels and E x_dbl rows (`smem_for`, csrc/mamba_fused_fwd.cu)."""
+    of D channels and E x_dbl rows (`plan_of`, csrc/mamba_fused_fwd.cu)."""
     return (2 * D + E) * (T + 1) * 4
+
+
+_FWD_CHANNELS = 256  # most channels a block of a split forward chunk takes
+# the most shared memory each of two blocks on one SM can take: half the
+# H100's 228 KB an SM, less the 1 KB the runtime keeps for each block
+_SMEM_TWO_PER_SM = 233472 // 2 - 1024
+
+
+def _fwd_plan(D: int, E: int, N: int, Dc: Optional[int] = None) -> dict:
+    """The forward's launch for a Mamba of D channels, E = R + 2N x_dbl rows
+    and N states, as `plan_of` in csrc/mamba_fused_fwd.cu computes it: the
+    chunk length T (`_chunk_len`), nb blocks of Dc channels per chunk, the
+    threads of a block of passes 1 and 3 (one per (channel, state) pair, in
+    whole warps, at most 512) and the shared memory in bytes of those passes
+    (`chunk`) and of pass X (`x`, nb > 1: a slice of Dc conv outputs and the
+    E x_dbl rows). nb = 1 wherever a chunk's D channels fit a tile
+    (`_tile_bytes`) that two blocks of an SM can hold (up to D 810 at E 80
+    and T 16: every Mamba of the zoo, HWAUNETR's D 768 at E 56 the widest).
+    Past that, where one whole chunk would hold an SM alone or not fit at
+    all, blocks of at most _FWD_CHANNELS channels, as few as cover D evenly
+    (mamba-130m's D 1536: 6 of 256, two blocks per SM and the whole chunk's
+    bits; mamba-370m's D 2048: 8 of 256), behind pass X. A split takes any
+    D whose E rows and two channel rows fit a block (E <= 3,416 at T 16),
+    and so every width `_bwd_plan` takes; past that it raises ValueError
+    with the shape. `Dc` forces blocks of that many channels (Dc = D the
+    whole chunk), for the card's checks of a split against a whole launch."""
+    T = _chunk_len(D, E)
+    ld = T + 1
+    if Dc is None:
+        if _tile_bytes(D, E, T) <= _SMEM_TWO_PER_SM:
+            Dc = D
+        else:
+            widest = (_SMEM_OPT_IN // (4 * ld) - E) // 2
+            Dc = min(_FWD_CHANNELS, max(widest, 0))
+            if Dc < 1:
+                raise ValueError(
+                    f"mamba_fused_scan forward: D {D} (E {E}, N {N}) at T {T}: the {E} x_dbl "
+                    f"rows and one channel's two rows take {_tile_bytes(1, E, T)} B of shared "
+                    f"memory per block, past the {_SMEM_OPT_IN} B a block can take")
+            Dc = -(-D // -(-D // Dc))  # the same block count, spread evenly
+    Dc = min(Dc, D)
+    nb = -(-D // Dc)
+    nbytes = {"chunk": _tile_bytes(Dc, E, T), "x": (Dc + E) * ld * 4 if nb > 1 else 0}
+    if max(nbytes.values()) > _SMEM_OPT_IN:
+        raise ValueError(
+            f"mamba_fused_scan forward: D {D} (E {E}, N {N}) in {nb} blocks of {Dc} channels "
+            f"needs {max(nbytes.values())} B of shared memory per block at T {T}, past the "
+            f"{_SMEM_OPT_IN} B a block can take")
+    return dict(T=T, Dc=Dc, nb=nb, threads=min(512, -(-Dc * N // 32) * 32), bytes=nbytes)
 
 
 def _kernel_operands(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip):
@@ -151,27 +203,34 @@ def _kernel_operands(xz, conv_w, conv_b, x_proj, dt_w, dt_b, A, D_skip):
     return [t.to(dev).float().contiguous() for t in (conv_w, cb, x_proj, dt_w, dt_b, A, D_skip)]
 
 
-def _launch_fwd(xz, w, reverse):
-    """The forward kernel on CUDA tensors; `w` from `_kernel_operands`.
-    Returns (out, state, dtsum): the gated output and, for the backward, the
-    chunk-entry states and per-chunk sums of dt."""
+def _launch_fwd(xz, w, reverse, Dc: Optional[int] = None):
+    """The forward kernel on CUDA tensors; `w` from `_kernel_operands`, the
+    launch from `_fwd_plan` (`Dc` forces its channel blocks). Returns (out,
+    state, dtsum): the gated output and, for the backward, the chunk-entry
+    states and per-chunk sums of dt."""
     from mm_unet_tpu_torch import _build
 
     Bsz, G, D2, L = xz.shape
     D, R, N, W = D2 // 2, w[3].shape[2], w[5].shape[2], w[0].shape[2]
-    sd, dev = xz.dtype, xz.device
-    T = _chunk_len(D, R + 2 * N)
-    n_chunks = -(-L // T)
+    E, sd, dev = R + 2 * N, xz.dtype, xz.device
+    plan = _fwd_plan(D, E, N, Dc)
+    n_chunks = -(-L // plan["T"])
     state = torch.empty(Bsz, G, n_chunks, D, N, device=dev)
     dtsum = torch.empty(Bsz, G, n_chunks, D, device=dev)
     out = torch.empty(Bsz, G, D, L, dtype=sd, device=dev)
+    # x_dbl of every chunk, from pass X, where a chunk spans several blocks;
+    # not kept for the backward, which computes its own (kept, it would add
+    # hundreds of MB to a model's peak memory)
+    xdbl = torch.empty(Bsz, G, E, L, device=dev) if plan["nb"] > 1 else None
     err = _build.library().mamba_fused_fwd(
         xz.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in w),
-        state.data_ptr(), dtsum.data_ptr(), Bsz, G, D, L, N, R, W, T,
+        state.data_ptr(), dtsum.data_ptr(), None if xdbl is None else xdbl.data_ptr(),
+        Bsz, G, D, L, N, R, W, plan["T"], plan["Dc"],
         int(reverse), int(sd == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"mamba_fused_fwd at B {Bsz}, G {G}, D {D}, L {L}, N {N}, R {R}, W {W}, "
-                      f"T {T} ({_tile_bytes(D, R + 2 * N, T)} B of shared memory per block)")
+                      f"T {plan['T']}, {plan['nb']} blocks of {plan['Dc']} channels a chunk "
+                      f"({plan['bytes']['chunk']} B of shared memory per block)")
     mamba_fused_scan.launches += 1
     return out, state, dtsum
 

@@ -1,7 +1,7 @@
 """Segmentation losses (counterpart of `mm_unet_tpu/train/losses.py`), MONAI
 semantics: DiceFocal (the reference's training loss), Dice, focal,
 Tversky, generalized Dice and the DICE+BCE of the reference's mini
-pipeline. Each takes NCHW logits and binary targets of the same shape and
+pipeline (with its `DICE_BCE_Loss` name and its `dice_coeff`). Each takes NCHW logits and binary targets of the same shape and
 an optional per-sample `weight` (B,), and returns a scalar (mean over the
 samples, weight-averaged when `weight` is given)."""
 
@@ -112,6 +112,18 @@ def dice_bce_loss(logits, targets, smooth: float = 1e-5,
         wb = weight.to(p.dtype).reshape((-1,) + (1,) * (p.ndim - 1))
         p, t = p * wb, t * wb
     return bce + 1 - (2 * (p * t).sum() + smooth) / (p.sum() + t.sum() + smooth)
+
+
+# the name the reference's mini pipeline gives it (its top-level `loss.py`)
+DICE_BCE_Loss = dice_bce_loss  # noqa: N816
+
+
+def dice_coeff(pred: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5) -> torch.Tensor:
+    """The mini pipeline's Dice coefficient (the root `loss.py`): one
+    (2 sum(pred target) + smooth) / (sum(pred) + sum(target) + smooth) over
+    every element of the batch, on probabilities or masks as given."""
+    inter = (pred * target).sum()
+    return (2.0 * inter + smooth) / (pred.sum() + target.sum() + smooth)
 
 
 # the losses `train.trainer.make_loss_fn` can name: the JAX package's

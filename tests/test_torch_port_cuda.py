@@ -187,13 +187,14 @@ def test_mamba_fused_backward_matches_plain(D, R, N, L, reverse, dtype):
     _close_grads(got, want, dtype, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"])
 
 
-def _lm_width_inputs(dev, dtype, L=300, B=2):
+def _lm_width_inputs(dev, dtype, L=300, B=2, D=1536):
     """Kernel 2's inputs at the Mamba LM's d_inner (mamba-130m: D 1536,
-    dt_rank 48): chunks of 16 tokens, each split over a cluster of 8 blocks
-    of 192 channels; 300 tokens end inside a chunk."""
-    rng = np.random.default_rng(1537)
+    dt_rank 48; mamba-370m: D 2048, dt_rank 64): chunks of 16 tokens, each
+    split over a cluster of 8 blocks of 192 or 256 channels; 300 tokens end
+    inside a chunk."""
+    rng = np.random.default_rng(D + 1)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
-    D, R, N, W = 1536, 48, 16, 4
+    R, N, W = D // 32, 16, 4
     xz = torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype)
     args = [xz, f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
             f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5), f(1, D)]
@@ -202,9 +203,10 @@ def _lm_width_inputs(dev, dtype, L=300, B=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mamba_fused_backward_at_the_lm_width(dtype):
+@pytest.mark.parametrize("D", [1536, 2048])
+def test_mamba_fused_backward_at_the_lm_width(D, dtype):
     dev = _device()
-    args, dout = _lm_width_inputs(dev, dtype)
+    args, dout = _lm_width_inputs(dev, dtype, D=D)
     got = _grads(mamba_fused_scan, args, dout)
     want = _grads(mamba_fused_scan_ref, args, dout)
     _close_grads(got, want, dtype, ["xz", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A", "D"])
@@ -411,8 +413,9 @@ def test_dkdualnet_routes_agree_on_the_card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_fused_kernel_at_the_lm_width(dtype):
     """Kernel 1 at the Mamba LM's d_inner (mamba-130m: D 1536, dt_rank 48),
-    where the tile takes 214,336 B of shared memory at 16-token chunks;
-    300 tokens end inside a chunk."""
+    whose chunks of 16 tokens split over 6 blocks of 256 channels behind
+    the x_dbl pass (a whole chunk, 214,336 B of shared memory, would hold an
+    SM alone); 300 tokens end inside a chunk."""
     dev = _device()
     rng = np.random.default_rng(1536)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
@@ -424,18 +427,87 @@ def test_mamba_fused_kernel_at_the_lm_width(dtype):
     _close(mamba_fused_scan(xz, *args), mamba_fused_scan_ref(xz, *args), dtype)
 
 
+def _wide_inputs(dev, dtype, D, R, L, B=2, N=16, W=4, seed=2048):
+    """xz and the seven weights of kernel 1 at width D, seeded."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+    xz = torch.cat([f(B, 1, D, L) * 0.5, f(B, 1, D, L)], dim=2).to(dtype)
+    return xz, (f(1, D, W) * 0.4, f(1, D) * 0.1, f(1, R + 2 * N, D) * D ** -0.5,
+                f(1, D, R) * R ** -0.5, f(1, D) * 0.1 - 4.0, -torch.exp(f(1, D, N) * 0.5),
+                torch.ones(1, D, device=dev))
+
+
 @pytest.mark.cuda
-def test_mamba_fused_refuses_tiles_past_the_shared_memory_opt_in():
-    """D 2048 (mamba-370m's d_inner) needs 283,968 B per block at the
-    shortest chunk, past the card's 227 KB: the launch is refused and the
-    wrapper raises with the shape; there is no fallback."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_kernel_past_the_whole_chunk_tile(dtype):
+    """Kernel 1 at mamba-370m's d_inner (D 2048, dt_rank 64), whose whole
+    chunk would need 283,968 B of shared memory at 16-token chunks, past the
+    card's 227 KB: each chunk's channels split over 8 blocks of 256 behind
+    the x_dbl pass (`_fwd_plan`); 300 tokens end inside a chunk."""
+    from mm_unet_tpu_torch.ops.mamba_fused import _fwd_plan
+
     dev = _device()
-    D, R, N, W, L = 2048, 64, 16, 4, 64
+    assert _fwd_plan(2048, 96, 16)["nb"] == 8
+    xz, args = _wide_inputs(dev, dtype, 2048, 64, 300)
+    _close(mamba_fused_scan(xz, *args), mamba_fused_scan_ref(xz, *args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_split_forward_is_the_same_from_run_to_run(dtype):
+    """Two forward calls at D 2048 (8 channel blocks a chunk) give the same
+    bits: output, chunk-entry states and sums of dt."""
+    from mm_unet_tpu_torch.ops.mamba_fused import _kernel_operands, _launch_fwd
+
+    dev = _device()
+    xz, args = _wide_inputs(dev, dtype, 2048, 64, 300)
+    w = _kernel_operands(xz, *args)
+    first, second = _launch_fwd(xz, w, False), _launch_fwd(xz, w, False)
+    for name, a, b in zip(["out", "state", "dtsum"], first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,R,N,L,Dc,reverse", [
+    (128, 4, 16, 700, 48, False),   # 3 blocks, the last of 32 channels
+    (128, 4, 16, 700, 48, True),
+    (7, 1, 8, 500, 3, False),       # blocks of 3 channels: 24 live lanes of a warp
+    (8, 1, 32, 37, 5, True),        # one chunk, ragged; one channel per warp
+    (1536, 48, 16, 300, 256, False),  # mamba-130m's width in 6 blocks, its plan
+])
+def test_mamba_fused_split_forward_gives_the_whole_chunks_bits(D, R, N, L, Dc, reverse, dtype):
+    """A chunk's channels in blocks of Dc behind the x_dbl pass give the bits
+    of the whole-chunk launch (forced with Dc = D): the x_dbl sums run over
+    the channels in one order in both, and every other term is per
+    channel; at D 1536 the split is the plan's own launch. (With one
+    chunk there is no pass 1: the sums of dt are left unwritten, as the
+    backward reads them only across chunks.)"""
+    from mm_unet_tpu_torch.ops.mamba_fused import _fwd_plan, _kernel_operands, _launch_fwd
+
+    dev = _device()
+    assert _fwd_plan(D, R + 2 * N, N, D)["nb"] == 1 and _fwd_plan(D, R + 2 * N, N, Dc)["nb"] > 1
+    xz, args = _wide_inputs(dev, dtype, D, R, L, N=N, seed=D + L)
+    w = _kernel_operands(xz, *args)
+    whole, split = _launch_fwd(xz, w, reverse, D), _launch_fwd(xz, w, reverse, Dc)
+    for name, a, b in zip(["out", "state", "dtsum"], whole, split):
+        assert torch.equal(a, b) or (name == "dtsum" and a.shape[2] == 1), name
+
+
+@pytest.mark.cuda
+def test_mamba_fused_refuses_x_dbl_rows_past_the_shared_memory_opt_in():
+    """The forward's limit: a block of its split chunk holds the E x_dbl rows
+    and at least one channel's two rows, (2 + E) 17 floats at 16-token
+    chunks, so E 3,417 is refused before any launch, with the shape; there
+    is no fallback."""
+    dev = _device()
+    D, N, W, L = 3400, 16, 4, 32
+    R = 3417 - 2 * N
     xz = torch.zeros(1, 1, 2 * D, L, device=dev)
     args = (torch.zeros(1, D, W, device=dev), None, torch.zeros(1, R + 2 * N, D, device=dev),
             torch.zeros(1, D, R, device=dev), torch.zeros(1, D, device=dev),
             -torch.ones(1, D, N, device=dev), torch.ones(1, D, device=dev))
-    with pytest.raises(RuntimeError, match="D 2048"):
+    with pytest.raises(ValueError, match=r"D 3400 \(E 3417, N 16\)"):
         mamba_fused_scan(xz, *args)
 
 

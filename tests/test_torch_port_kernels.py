@@ -189,9 +189,9 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 # every megakernel Mamba width (d_inner) the port builds, by model: MM_Net's
 # offset Mambas and RCG detours, dkDualNet's and HWAUNETR's stages, the
-# Mamba LM at mamba-130m's widths
+# Mamba LM at mamba-130m's and mamba-370m's widths
 MEGA_WIDTHS = {"MM_Net": {2, 6, 128}, "dkDualNet": {96, 192, 384},
-               "HWAUNETR": {96, 192, 384, 768}, "mamba-130m": {1536}}
+               "HWAUNETR": {96, 192, 384, 768}, "mamba-130m": {1536}, "mamba-370m": {2048}}
 
 
 def _check_bwd_plan(D, E, N):
@@ -212,22 +212,45 @@ def _check_bwd_plan(D, E, N):
     return plan
 
 
-@pytest.mark.parametrize("name", ["MM_Net", "dkDualNet", "HWAUNETR", "mamba-130m"])
+def _check_fwd_plan(D, E, N):
+    """Kernel 1's plan for one width: the forward's chunk length, every pass
+    within the shared memory a block can take, the blocks covering the D
+    channels with none empty, whole warps of at most 512 threads, and one
+    block a chunk (the whole-chunk launch, as before the split) exactly
+    where two blocks of the whole chunk's tile fit an SM."""
+    from mm_unet_tpu_torch.ops.mamba_fused import (
+        _FWD_CHANNELS, _SMEM_OPT_IN, _SMEM_TWO_PER_SM, _chunk_len, _fwd_plan, _tile_bytes)
+
+    plan = _fwd_plan(D, E, N)
+    T, Dc, nb = plan["T"], plan["Dc"], plan["nb"]
+    assert T == _chunk_len(D, E), (D, plan)
+    assert max(plan["bytes"].values()) <= _SMEM_OPT_IN, (D, plan)
+    assert Dc * nb >= D > (nb - 1) * Dc, (D, plan)
+    assert (nb == 1) == (_tile_bytes(D, E, T) <= _SMEM_TWO_PER_SM), (D, plan)
+    assert nb == 1 or Dc <= _FWD_CHANNELS, (D, plan)
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 512, (D, plan)
+    return plan
+
+
+@pytest.mark.parametrize("name", ["MM_Net", "dkDualNet", "HWAUNETR", "mamba-130m", "mamba-370m"])
 def test_chunk_lengths_split_into_backward_sub_chunks(name):
     """Every megakernel Mamba of the model gets a chunk of whole sub-chunks
     of the forward's pass 3 and the backward's pass C (which keep
     `_SUB_CHUNK` tokens at a time in registers), within the kernels' range,
-    and a backward plan that fits (`_check_bwd_plan`). At MM_Net's D 128,
-    two pass-C blocks fit an SM's 228 KB of shared memory (and its
-    registers: 256 threads at most 128 registers each, the kernel's launch
-    bounds)."""
+    and plans that fit (`_check_fwd_plan`, `_check_bwd_plan`). Every width
+    of the zoo keeps the forward's whole-chunk launch (one block a chunk, at
+    the same chunk length); the LMs' D 1536 and 2048 split. At MM_Net's D
+    128, two pass-C blocks fit an SM's 228 KB of
+    shared memory (and its registers: 256 threads at most 128 registers
+    each, the kernel's launch bounds)."""
     from mm_unet_tpu_torch.models import give_model
-    from mm_unet_tpu_torch.models.lm import MAMBA_130M, give_lm
+    from mm_unet_tpu_torch.models.lm import MAMBA_130M, MAMBA_370M, give_lm
     from mm_unet_tpu_torch.models.mamba import Mamba
     from mm_unet_tpu_torch.ops.mamba_fused import _SUB_CHUNK, _chunk_len
 
-    if name == "mamba-130m":
-        model = give_lm(dict(MAMBA_130M, n_layer=1), device="cpu")
+    lms = {"mamba-130m": MAMBA_130M, "mamba-370m": MAMBA_370M}
+    if name in lms:
+        model = give_lm(dict(lms[name], n_layer=1), device="cpu")
     else:
         model = give_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
     dims = {(m.d_inner, m.dt_rank + 2 * m.d_state, m.d_state) for m in model.modules()
@@ -236,16 +259,62 @@ def test_chunk_lengths_split_into_backward_sub_chunks(name):
     for D, E, N in sorted(dims):
         T = _chunk_len(D, E)
         assert 16 <= T <= 256 and T % _SUB_CHUNK == 0, (D, E, T)
+        fwd = _check_fwd_plan(D, E, N)
+        assert (fwd["nb"] == 1) == (name not in lms), (D, fwd)
         plan = _check_bwd_plan(D, E, N)
         if D == 128:
             assert 2 * (plan["bytes"]["c"] + 1024) <= 228 * 1024 and plan["threads"] == 256
 
 
+def test_forward_plan_at_the_lm_widths_and_past_the_whole_chunk_tile():
+    """mamba-370m's d_inner 2048 (dt_rank 64, E 96) would need 283,968 B of
+    shared memory for a whole chunk at T 16, past the opt-in, and
+    mamba-130m's D 1536 (E 80) 214,336 B, one block an SM: the forward
+    splits them into 8 and 6 blocks of 256 channels behind the x_dbl pass,
+    each within two blocks' share of an SM. The last whole-chunk width at
+    E 80 is D 810; one channel more splits. A forced block size `Dc`
+    splits any width, and Dc = D keeps the chunk whole."""
+    from mm_unet_tpu_torch.ops.mamba_fused import _SMEM_TWO_PER_SM, _fwd_plan
+
+    plan = _check_fwd_plan(2048, 96, 16)
+    assert (plan["T"], plan["Dc"], plan["nb"], plan["threads"]) == (16, 256, 8, 512)
+    assert plan["bytes"] == {"chunk": (2 * 256 + 96) * 17 * 4, "x": (256 + 96) * 17 * 4}
+    plan = _check_fwd_plan(1536, 80, 16)
+    assert (plan["T"], plan["Dc"], plan["nb"]) == (16, 256, 6)
+    assert max(plan["bytes"].values()) <= _SMEM_TWO_PER_SM
+    assert _check_fwd_plan(810, 80, 16)["nb"] == 1
+    assert _check_fwd_plan(811, 80, 16)["nb"] == 4
+    forced = _fwd_plan(128, 36, 16, Dc=48)
+    assert (forced["T"], forced["Dc"], forced["nb"]) == (64, 48, 3)
+    whole = _fwd_plan(1536, 80, 16, Dc=1536)
+    assert (whole["nb"], whole["bytes"]) == (1, {"chunk": 214336, "x": 0})
+
+
+@pytest.mark.parametrize("D,E", [(2048, 96), (3072, 128), (4096, 160), (5120, 192), (5968, 80)])
+def test_forward_plan_takes_every_width_the_backward_plan_takes(D, E):
+    """mamba-370m, -790m, -1.4b and -2.8b's widths (D = 2 d_model, E =
+    d_model / 16 + 32) and the backward's widest at E 80: both plans take
+    each, the forward in blocks of at most 256 channels."""
+    _check_bwd_plan(D, E, 16)
+    assert _check_fwd_plan(D, E, 16)["nb"] == -(-D // 256)
+
+
+def test_forward_plan_limit_is_its_x_dbl_rows():
+    """The forward's only limit: a split block holds the E x_dbl rows and at
+    least one channel's two rows, (2 + E) 17 floats at T 16, so E 3,416
+    fits (in blocks of one channel) and E 3,417 raises with the shape."""
+    from mm_unet_tpu_torch.ops.mamba_fused import _fwd_plan
+
+    assert _check_fwd_plan(3400, 3416, 16)["Dc"] == 1
+    with pytest.raises(ValueError, match=r"D 3400 \(E 3417, N 16\)"):
+        _fwd_plan(3400, 3417, 16)
+
+
 def test_backward_plan_past_the_lm_width_and_its_limit():
-    """Kernel 2 takes D 2048 (mamba-370m's d_inner, E 96), which kernel 1
-    refuses; its limit is the widest block a cluster of 8 can take at the
-    shortest chunk: at E 80 (the LM's x_dbl rows), N 16 that is 8 x 746
-    channels, and one more raises with the shape."""
+    """Kernel 2 takes D 2048 (mamba-370m's d_inner, E 96) in a cluster of 8
+    blocks of 256; its limit is the widest block a cluster of 8 can take at
+    the shortest chunk: at E 80 (mamba-130m's x_dbl rows), N 16 that is 8 x
+    746 channels, and one more raises with the shape."""
     from mm_unet_tpu_torch.ops.mamba_fused import _bwd_plan
 
     plan = _check_bwd_plan(2048, 96, 16)

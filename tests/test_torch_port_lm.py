@@ -1,5 +1,6 @@
 """The port's Mamba language model against the JAX package's, on the CPU, at
-tiny sizes (d_model 32-64, 2 layers, vocabulary 50, d_state 16); inputs
+tiny sizes (d_model 32-64, 2 layers, vocabulary 50, d_state 16; one test at
+mamba-370m's d_model 1024, depth 1); inputs
 from numpy seeds, weights from the JAX init converted by `lm_pairs`.
 
 The port is held to the JAX **forward**, never to the JAX decoders' logits,
@@ -45,6 +46,7 @@ from mm_unet_tpu.ops.state_update import selective_state_update as jax_state_upd
 from mm_unet_tpu.utils.torch_convert import apply_pairs
 from mm_unet_tpu_torch.models.lm import (
     MAMBA_130M,
+    MAMBA_370M,
     MambaLMHeadModel,
     _top_k_filter,
     _top_p_filter,
@@ -133,8 +135,8 @@ def test_block_matches_jax(rms_norm, fused_add_norm, with_residual):
     assert_close(got_res.numpy(), want_res, MODEL_TOL, "residual")
 
 
-def _jax_lm(rms_norm, fused_add_norm, d_model=64, seed=1):
-    jm = jlm.MambaLMHeadModel(d_model=d_model, n_layer=N_LAYER, vocab_size=VOCAB,
+def _jax_lm(rms_norm, fused_add_norm, d_model=64, seed=1, n_layer=N_LAYER):
+    jm = jlm.MambaLMHeadModel(d_model=d_model, n_layer=n_layer, vocab_size=VOCAB,
                               d_state=D_STATE, rms_norm=rms_norm, fused_add_norm=fused_add_norm)
     v = to_numpy(jm.init(jax.random.key(seed), jnp.zeros((1, 4), jnp.int32)))
     # perturb every norm away from its init (1, 0), so that the norms' weights
@@ -148,8 +150,8 @@ def _jax_lm(rms_norm, fused_add_norm, d_model=64, seed=1):
                              for k, x in node[key].items()}
     bb["norm_f"] = {k: (x + rng.normal(0, 0.2, x.shape)).astype(np.float32)
                     for k, x in bb["norm_f"].items()}
-    tm = load_torch(MambaLMHeadModel(d_model, N_LAYER, VOCAB, D_STATE, rms_norm, fused_add_norm),
-                    v, lm_pairs(N_LAYER, d_model, rms_norm))
+    tm = load_torch(MambaLMHeadModel(d_model, n_layer, VOCAB, D_STATE, rms_norm, fused_add_norm),
+                    v, lm_pairs(n_layer, d_model, rms_norm))
     return jm, v, tm
 
 
@@ -159,7 +161,7 @@ def _expected_logits(jm, v, ids, rms_norm):
     norm_f at eps 1e-5 and the tied head, in float64."""
     out, state = jm.apply(v, jnp.asarray(ids), capture_intermediates=True,
                           mutable=["intermediates"])
-    h, res = state["intermediates"]["backbone"][f"layers_{N_LAYER - 1}"]["__call__"][0]
+    h, res = state["intermediates"]["backbone"][f"layers_{jm.n_layer - 1}"]["__call__"][0]
     x = np.asarray(h, np.float64) + np.asarray(res, np.float64)
     p = v["params"]["backbone"]["norm_f"]
     if rms_norm:
@@ -217,22 +219,20 @@ def test_greedy_tokens_are_the_forward_argmax(rms_norm, fused_add_norm):
     np.testing.assert_array_equal(tokens[:, 4:], want[:, 3:-1].argmax(-1))
 
 
-@pytest.mark.parametrize("rms_norm,fused_add_norm", NORMS)
-def test_lm_gradients_match_jax(rms_norm, fused_add_norm):
-    """Every parameter gradient of (logits * w).sum() at d_model 32, 2
-    layers, 2 x 64 tokens: autograd of the port against `jax.grad` of the
-    JAX model with its norm_f corrected to eps 1e-5 (the last Block's (h,
-    residual) from `capture_intermediates`, through norm_f and the tied head
-    in the loss), its gradients carried to the port's names by `lm_pairs`."""
-    jm, v, tm = _jax_lm(rms_norm, fused_add_norm, d_model=32)
-    rng = np.random.default_rng(13)
-    ids = rng.integers(0, VOCAB, (2, 64))
-    w = rng.standard_normal((2, 64, VOCAB)).astype(np.float32)
+def _check_lm_gradients(rms_norm, fused_add_norm, d_model, n_layer, ids, rng):
+    """Every parameter gradient of (logits * w).sum(): autograd of the port
+    against `jax.grad` of the JAX model with its norm_f corrected to eps
+    1e-5 (the last Block's (h, residual) from `capture_intermediates`,
+    through norm_f and the tied head in the loss), its gradients carried to
+    the port's names by `lm_pairs`. Returns (the port's model, the corrected
+    JAX logits of that pass, f32)."""
+    jm, v, tm = _jax_lm(rms_norm, fused_add_norm, d_model=d_model, n_layer=n_layer)
+    w = rng.standard_normal((*ids.shape, VOCAB)).astype(np.float32)
 
     def loss(params):
         _, state = jm.apply({**v, "params": params}, jnp.asarray(ids),
                             capture_intermediates=True, mutable=["intermediates"])
-        h, res = state["intermediates"]["backbone"][f"layers_{N_LAYER - 1}"]["__call__"][0]
+        h, res = state["intermediates"]["backbone"][f"layers_{n_layer - 1}"]["__call__"][0]
         x, p = h + res, params["backbone"]["norm_f"]
         if rms_norm:
             y = x / jnp.sqrt(jnp.mean(x * x, -1, keepdims=True) + 1e-5) * p["scale"]
@@ -240,16 +240,46 @@ def test_lm_gradients_match_jax(rms_norm, fused_add_norm):
             mu = x.mean(-1, keepdims=True)
             y = (x - mu) / jnp.sqrt(((x - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
             y = y * p["scale"] + p["bias"]
-        return jnp.sum(y @ params["backbone"]["embedding"]["embedding"].T * w)
+        logits = y @ params["backbone"]["embedding"]["embedding"].T
+        return jnp.sum(logits * w), logits
 
-    want = jax_grads_to_torch(to_numpy(jax.grad(loss)(v["params"])),
-                              lm_pairs(N_LAYER, 32, rms_norm))
+    (_, logits), grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    want = jax_grads_to_torch(to_numpy(grads), lm_pairs(n_layer, d_model, rms_norm))
     tm.train()
     (tm(_t(ids)) * _t(w)).sum().backward()
     got = dict(tm.named_parameters())
     assert sorted(got) == sorted(want)
     for name, g in want.items():
         assert_close(got[name].grad.numpy(), g.numpy(), GRAD_TOL, name)
+    return tm, np.asarray(logits)
+
+
+@pytest.mark.parametrize("rms_norm,fused_add_norm", NORMS)
+def test_lm_gradients_match_jax(rms_norm, fused_add_norm):
+    """Every parameter gradient (`_check_lm_gradients`) at d_model 32, 2
+    layers, 2 x 64 tokens."""
+    rng = np.random.default_rng(13)
+    ids = rng.integers(0, VOCAB, (2, 64))
+    _check_lm_gradients(rms_norm, fused_add_norm, 32, N_LAYER, ids, rng)
+
+
+def test_lm_at_mamba_370m_width_matches_jax():
+    """mamba-370m's widths and norms (`MAMBA_370M`: d_model 1024, so
+    d_inner 2048, dt_rank 64, x_dbl rows 96; RMSNorm with fused add+norm)
+    at depth 1, vocabulary 50 (the head never reaches the kernels) and 1 x
+    48 tokens: every parameter gradient (`_check_lm_gradients`, GRAD_TOL)
+    and the logits against the corrected JAX forward of that pass
+    (MODEL_TOL)."""
+    assert MAMBA_370M["d_model"] == 1024 and MAMBA_370M["rms_norm"]
+    assert MAMBA_370M["fused_add_norm"]
+    rng = np.random.default_rng(370)
+    ids = rng.integers(0, VOCAB, (1, 48))
+    tm, want = _check_lm_gradients(True, True, MAMBA_370M["d_model"], 1, ids, rng)
+    mixer = tm.backbone.layers[0].mixer
+    assert (mixer.d_inner, mixer.dt_rank, mixer.d_state) == (2048, 64, 16)
+    with torch.no_grad():
+        got = tm(_t(ids)).numpy()
+    assert_close(got, want, MODEL_TOL, "logits")
 
 
 def test_sampled_decoders_agree_token_for_token():
