@@ -149,7 +149,17 @@ any failure ends the run non-zero):
    every fused-scan call of a 2x3x512² train-mode pass held to it
    (`FusedCalls`), and HWAUNETR's two Mamba routes against each other
    (`mamba_routes_check`); (e) all 18 names of the registry built through
-   `give_model` on the card. A summary line gathers the numbers.
+   `give_model` on the card; (f) the backbone warm start: full-width
+   `pvt_v2_b2`, `pvt_v2_b3` and Res2Net-50 v1b state_dicts under the
+   reference's names, drawn from a numpy seed into a temporary directory;
+   FCBFormer (b3, 352²) and DuAT (b2) through `give_model_from_config` with
+   their sections' `model_dir` naming the file and `create_train_state`:
+   every backbone tensor bit for bit the file's, the count of tensors
+   loaded equal to the reference names the backbone holds, every other
+   tensor that of a model built from the same generator without the file,
+   then one finite `train_step`; and `warm_start` loading the Res2Net file
+   into CFANet's encoder, running statistics included. A summary line
+   gathers the numbers.
 13. the parallel family (`mm_unet_tpu_torch/parallel/`) at world size 1
    (one card holds one NCCL rank; the CPU tests hold the multi-rank
    arithmetic) and the last tools: (a) `cli.train.main` under a one-rank
@@ -3272,6 +3282,227 @@ def phase12_registry(seed: int) -> None:
         raise SystemExit("phase12 FAILED: a name of the registry does not build on the card")
 
 
+# phase 12 (f): the reference checkpoints' widths (`pvt_v2.py`'s b2 and b3:
+# dims 64, 128, 320, 512, MLP ratios 8, 8, 4, 4, spatial reductions 8, 4,
+# 2, 1; Res2Net-50 v1b 26w 4s), written independently of the port's modules
+PVT_V2_DIMS = (64, 128, 320, 512)
+PVT_V2_MLPS = (8, 8, 4, 4)
+PVT_V2_SRS = (8, 4, 2, 1)
+PVT_V2_DEPTHS = {"pvt_v2_b2": (3, 4, 6, 3), "pvt_v2_b3": (3, 4, 18, 3)}
+RES2NET50_BLOCKS = (3, 4, 6, 3)
+# (model, its config section, the file its section names, the module that
+# takes it): FCBFormer's backbone is the b3's children in a Sequential
+WARM_MODELS = (("FCBFormer", "FCBFormer", "pvt_v2_b3", "TB.backbone"),
+               ("DuAT", "duat", "pvt_v2_b2", "backbone"))
+
+
+def reference_pvt_v2_state_dict(rng, depths) -> dict:
+    """A reference `pvt_v2.py` state_dict at `depths`, with its classifier
+    head, drawn from `rng` (norm weights about 1)."""
+    sd = {}
+
+    def put(name, *shape):
+        module, param = name.rsplit(".", 1)
+        norm = param == "weight" and module.rsplit(".", 1)[-1].startswith("norm")
+        v = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        sd[name] = torch.from_numpy(v + np.float32(norm))
+
+    def linear(name, cout, *cin):
+        put(f"{name}.weight", cout, *cin)
+        put(f"{name}.bias", cout)
+
+    cin = 3
+    for i, (c, r, sr) in enumerate(zip(PVT_V2_DIMS, PVT_V2_MLPS, PVT_V2_SRS)):
+        k = 7 if i == 0 else 3
+        linear(f"patch_embed{i + 1}.proj", c, cin, k, k)
+        linear(f"patch_embed{i + 1}.norm", c)
+        for j in range(depths[i]):
+            b = f"block{i + 1}.{j}"
+            linear(f"{b}.norm1", c)
+            linear(f"{b}.attn.q", c, c)
+            linear(f"{b}.attn.kv", 2 * c, c)
+            linear(f"{b}.attn.proj", c, c)
+            if sr > 1:
+                linear(f"{b}.attn.sr", c, c, sr, sr)
+                linear(f"{b}.attn.norm", c)
+            linear(f"{b}.norm2", c)
+            linear(f"{b}.mlp.fc1", c * r, c)
+            linear(f"{b}.mlp.dwconv.dwconv", c * r, 1, 3, 3)
+            linear(f"{b}.mlp.fc2", c, c * r)
+        linear(f"norm{i + 1}", c)
+        cin = c
+    linear("head", 1000, PVT_V2_DIMS[-1])
+    return sd
+
+
+def reference_res2net50_state_dict(rng) -> dict:
+    """A reference Res2Net-50 v1b (26w, 4s) state_dict with BatchNorm
+    running statistics, `num_batches_tracked` and the classifier, drawn from
+    `rng`."""
+    sd = {}
+
+    def w(name, *shape):
+        sd[name] = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                    * np.float32(0.02))
+
+    def bn(name, c):
+        w(f"{name}.weight", c)
+        sd[f"{name}.weight"] += 1.0
+        w(f"{name}.bias", c)
+        w(f"{name}.running_mean", c)
+        sd[f"{name}.running_var"] = torch.from_numpy(
+            rng.uniform(0.5, 2.0, c).astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000, dtype=torch.int64)
+
+    w("conv1.0.weight", 32, 3, 3, 3)
+    bn("conv1.1", 32)
+    w("conv1.3.weight", 32, 32, 3, 3)
+    bn("conv1.4", 32)
+    w("conv1.6.weight", 64, 32, 3, 3)
+    bn("bn1", 64)
+    cin = 64
+    for i, (n, planes) in enumerate(zip(RES2NET50_BLOCKS, (64, 128, 256, 512))):
+        width = planes * 26 // 64
+        for j in range(n):
+            b = f"layer{i + 1}.{j}"
+            w(f"{b}.conv1.weight", 4 * width, cin, 1, 1)
+            bn(f"{b}.bn1", 4 * width)
+            for s in range(3):
+                w(f"{b}.convs.{s}.weight", width, width, 3, 3)
+                bn(f"{b}.bns.{s}", width)
+            w(f"{b}.conv3.weight", 4 * planes, 4 * width, 1, 1)
+            bn(f"{b}.bn3", 4 * planes)
+            if j == 0:
+                w(f"{b}.downsample.1.weight", 4 * planes, cin, 1, 1)
+                bn(f"{b}.downsample.2", 4 * planes)
+            cin = 4 * planes
+    w("fc.weight", 1000, 2048)
+    w("fc.bias", 1000)
+    return sd
+
+
+def reference_named(backbone: torch.nn.Module) -> dict:
+    """A PVTv2's tensors under the reference's names; in FCBFormer's
+    Sequential of its children, child 3i + s is stage i + 1's patch_embed,
+    block, norm (s = 0, 1, 2)."""
+    if not isinstance(backbone, torch.nn.Sequential):
+        return backbone.state_dict()
+    return {f"{('patch_embed', 'block', 'norm')[k % 3]}{k // 3 + 1}.{name}": t
+            for k, child in enumerate(backbone) for name, t in child.state_dict().items()}
+
+
+def warm_config(name: str, section: str, path: str):
+    """A config choosing `name` whose section names `path` as `model_dir`
+    (empty: no file), at the polyp sets' 352², lr 1e-3 held."""
+    from mm_unet_tpu_torch.utils import ConfigDict
+
+    return ConfigDict(
+        finetune=dict(model_choose=name, checkpoint=name),
+        trainer=dict(dataset_choose="Kvasir_SEG", lr=1e-3, warmup=1, num_epochs=2,
+                     steps_per_epoch=10**6, weight_decay=0.05, optimizer="adamw"),
+        dataset={"Kvasir_SEG": dict(image_size=352)},
+        models={section: dict(branch1=dict(model_dir=path))})
+
+
+def warm_checks(model, plain, prefix: str, tensors: dict, sd: dict, printed: str) -> dict:
+    """`model` warm-started from `sd` into its module at `prefix` (whose
+    tensors under the reference's names are `tensors`), against `plain`,
+    built from the same generator without the file: every tensor the file
+    holds at its shape equal to the file's, every other the plain model's,
+    and the count `warm_start` printed equal to the reference names the
+    module holds."""
+    import re
+
+    mapped = {k: v for k, v in tensors.items() if k in sd and sd[k].shape == v.shape}
+    file_ok = all(torch.equal(v, sd[k].to(v.device)) for k, v in mapped.items())
+    ours = {f"{prefix}.{k}" for k in model.get_submodule(prefix).state_dict()}
+    theirs = plain.state_dict()
+    rest = {k: v for k, v in model.state_dict().items() if k not in ours}
+    rest_ok = all(torch.equal(v, theirs[k]) for k, v in rest.items())
+    counts = [int(n) for n in re.findall(r"warm_start: loaded (\d+) tensors", printed)]
+    on_card = all(t.is_cuda for t in [*model.parameters(), *model.buffers()])
+    return dict(loaded=counts, mapped=len(mapped), file_equal=file_ok, others=len(rest),
+                others_equal=rest_ok, on_card=on_card,
+                ok=file_ok and rest_ok and on_card and counts == [len(mapped)] and len(mapped) > 0)
+
+
+def phase12_warm_start(seed: int) -> dict:
+    """(f) The backbone warm start from reference checkpoints on the card:
+    a full-width `pvt_v2_b2`, `pvt_v2_b3` and Res2Net-50 v1b state_dict
+    drawn from a numpy seed into a temporary directory; FCBFormer (b3,
+    352²) and DuAT (b2) through `give_model_from_config` with their
+    sections' `model_dir` naming the file, and `create_train_state`
+    (`warm_checks`: the backbone bit for bit the file's, the count, the rest
+    a model built without the file), then one `train_step` at batch 4
+    (finite loss); `warm_start` on CFANet, whose Res2Net50Encoder takes the
+    Res2Net file with its running statistics (`num_batches_tracked` left
+    alone)."""
+    import os
+    import tempfile
+
+    from mm_unet_tpu_torch.data import synthetic_batch
+    from mm_unet_tpu_torch.models import give_model, give_model_from_config
+    from mm_unet_tpu_torch.train.trainer import create_train_state, make_loss_fn, train_step
+    from mm_unet_tpu_torch.utils.torch_convert import warm_start
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 17)
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    batch = synthetic_batch(4, 352, seed + 18)
+    x, y = torch.from_numpy(batch["image"]).cuda(), torch.from_numpy(batch["label"]).cuda()
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="mmu_phase12f_") as tmp:
+        files = {}
+        for ref, depths in PVT_V2_DEPTHS.items():
+            files[ref] = (os.path.join(tmp, f"{ref}.pth"), reference_pvt_v2_state_dict(rng, depths))
+        files["res2net50"] = (os.path.join(tmp, "res2net50_v1b_26w_4s.pth"),
+                              reference_res2net50_state_dict(rng))
+        for path, sd in files.values():
+            torch.save(sd, path)
+        for name, section, ref, prefix in WARM_MODELS:
+            path, sd = files[ref]
+            model = give_model_from_config(warm_config(name, section, path), "cuda",
+                                           torch.Generator().manual_seed(seed))
+            plain = give_model_from_config(warm_config(name, section, ""), "cuda",
+                                           torch.Generator().manual_seed(seed))
+            with Capture() as out:
+                state = create_train_state(model, warm_config(name, section, path), seed=seed)
+            tensors = reference_named(model.get_submodule(prefix))
+            r = warm_checks(model, plain, prefix, tensors, sd, out.text)
+            r["backbone_tensors"] = len(tensors)
+            r["ok"] = r["ok"] and r["mapped"] == len(tensors) == len(sd) - 2  # all but the head
+            del plain
+            scalars, _ = train_step(state, x, y, loss_fn)
+            r["loss"] = float(scalars["total_loss"])
+            r["ok"] = r["ok"] and math.isfinite(r["loss"])
+            results[name] = r
+            del model, state
+        path, sd = files["res2net50"]
+        model = give_model("CFANet", "cuda", torch.Generator().manual_seed(seed))
+        plain = give_model("CFANet", "cuda", torch.Generator().manual_seed(seed))
+        with Capture() as out:
+            warm_start(model, warm_config("CFANet", "cfa_net", path))
+        tensors = model.resnet.state_dict()
+        r = warm_checks(model, plain, "resnet", {k: v for k, v in tensors.items()
+                                                 if not k.endswith("num_batches_tracked")},
+                        sd, out.text)
+        tracked = [k for k in tensors if k.endswith("num_batches_tracked")]
+        r["num_batches_tracked_as_built"] = all(
+            torch.equal(tensors[k], plain.resnet.state_dict()[k]) for k in tracked)
+        r["ok"] = (r["ok"] and r["num_batches_tracked_as_built"]
+                   and r["mapped"] == len(tensors) - len(tracked) == len(sd) - 2 - len(tracked))
+        results["CFANet"] = r
+        del model, plain
+    torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in results.values())
+    seconds = time.perf_counter() - t0
+    print("phase12 warm start " + json.dumps(dict(models=results, seconds=seconds, card=smi(),
+                                                  ok=ok)), flush=True)
+    if not ok:
+        raise SystemExit("phase12 FAILED: the backbone warm start")
+    return dict(seconds=seconds, **{n: r["loaded"] for n, r in results.items()})
+
+
 def phase12_zoo(seed: int) -> dict:
     """Phase 12, (a)-(e): the JAX registry's last seven models. (a) card vs
     CPU (`phase11_card_vs_cpu`); (b) each one's serving and training path
@@ -3290,11 +3521,13 @@ def phase12_zoo(seed: int) -> dict:
     fwd, bwd = phase1_step_shapes(hwa["mamba_shapes"], seed, "phase12", check=True)
     phase12_hwaunetr_kernels(seed)
     phase12_registry(seed)
+    warm = phase12_warm_start(seed)
     keys = ("serve_images_per_sec_f32", "train_images_per_sec", "max_memory_allocated_bytes",
             "device_ms", "busy_share", "forward_flop", "train_tflop_per_s")
     print("phase12 zoo summary " + json.dumps(dict(
         models={name: {**card[name], **{k: paths[name][k] for k in keys}} for name in ZOO12},
-        hwaunetr_launches=hwa["kernel_launches"], seconds=time.perf_counter() - t0,
+        hwaunetr_launches=hwa["kernel_launches"], warm_start=warm,
+        seconds=time.perf_counter() - t0,
         card=smi())), flush=True)
     return {"launches": hwa["kernel_launches"], "fwd_steps": fwd, "bwd_steps": bwd}
 

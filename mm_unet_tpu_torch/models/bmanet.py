@@ -224,9 +224,10 @@ class BMA(nn.Module):
 class BMANet(nn.Module):
     def __init__(self, channel: int = 64, out_channel: int = 1, model_dir: str = "",
                  generator: Optional[torch.Generator] = None):
-        """`channel` is the decoder's width. `model_dir` (the reference's
-        pretrained-backbone `.pth`, not in the repo) is accepted and unused,
-        as in the JAX model."""
+        """`channel` is the decoder's width. `model_dir` names the reference's
+        pretrained-backbone `.pth` (not in the repo): the constructor does not
+        read it; `create_train_state` warm-starts the backbone from it
+        (`utils/torch_convert.py::warm_start`), as the JAX package's does."""
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         ch = channel

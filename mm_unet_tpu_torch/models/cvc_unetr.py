@@ -156,8 +156,10 @@ class CVC_Unetr(nn.Module):
                  dims: Sequence[int] = (64, 128, 320, 512), out_dim: int = 32,
                  kernel_size: int = 3, mlp_ratio: int = 4, model_dir: str = "",
                  generator: Optional[torch.Generator] = None):
-        """`model_dir` (the reference's pretrained-backbone `.pth`, not in the
-        repo) is accepted and unused, as in the JAX model."""
+        """`model_dir` names the reference's pretrained-backbone `.pth` (not in
+        the repo): the constructor does not read it; `create_train_state`
+        warm-starts the backbone from it (`utils/torch_convert.py::warm_start`),
+        as the JAX package's does."""
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         od = out_dim

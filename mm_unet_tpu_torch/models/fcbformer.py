@@ -123,9 +123,11 @@ class TB(nn.Module):
 class FCBFormer(nn.Module):
     def __init__(self, size: int = 352, num_class: int = 1, model_dir: str = "",
                  generator: Optional[torch.Generator] = None):
-        """`size` and `model_dir` (the reference's `.pth` warm start, not in
-        the repo) are accepted for the config's sake and unused, as in the
-        JAX model."""
+        """`size` is accepted for the config's sake and unused, as in the JAX
+        model. `model_dir` names the reference's `pvt_v2_b3.pth` (not in the
+        repo): the constructor does not read it; `create_train_state`
+        warm-starts the backbone from it (`utils/torch_convert.py::warm_start`),
+        as the JAX package's does."""
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.TB = TB(g)

@@ -12,8 +12,9 @@ either form. Parameter names are the reference's (`pvt_v2.py`:
 patch_embed1.proj, block1.0.attn.q, block1.0.attn.sr, block1.0.mlp.dwconv.dwconv,
 norm1), as `mm_unet_tpu.utils.torch_convert.pvtv2_pairs` tabulates them.
 `pvt_v2_b2` (DuAT, PVT_CASCADE, BMANet) and `pvt_v2_b3` (FCBFormer) load
-no `.pth`: the zoo starts from random weights, as the JAX package does
-without the file.
+no `.pth` themselves: `create_train_state` loads the one a config section
+names as `model_dir` (`utils/torch_convert.py::warm_start`); without it the
+zoo starts from random weights, as the JAX package does.
 """
 
 from __future__ import annotations

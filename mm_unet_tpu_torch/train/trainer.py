@@ -23,6 +23,7 @@ from mm_unet_tpu_torch.parallel.mesh import DataParallel
 from mm_unet_tpu_torch.parallel.zero import ZeroAdamW
 from mm_unet_tpu_torch.train.losses import LOSS_REGISTRY
 from mm_unet_tpu_torch.train.optim import build_optimizer, set_lr, warmup_cosine_epoch_schedule
+from mm_unet_tpu_torch.utils.torch_convert import warm_start
 
 
 @dataclass
@@ -46,9 +47,14 @@ def create_train_state(model: nn.Module, config: Mapping, seed: int = 0,
     num_epochs, and optionally steps_per_epoch (1), warmup_start_lr (0),
     optimizer ("adamw"), weight_decay (0.05) and, with `dp`, zero1 (true
     when the world size is above 1, as `train.py:163-169`). The config is a
-    mapping (the JAX package's ConfigDict is one). With `dp` the model is
+    mapping (the JAX package's ConfigDict is one). First, where the selected
+    model's config section names a reference `.pth` as `model_dir`, its
+    backbone is loaded from it (`utils/torch_convert.py::warm_start`, as the
+    JAX package's `create_train_state` does before its optimizer; a
+    checkpoint resumed later overrides it). With `dp` the model is then
     replicated from rank 0 and its BatchNorm and dropout layers attached to
     the run."""
+    warm_start(model, config)
     tcfg = config["trainer"]
     schedule = warmup_cosine_epoch_schedule(
         base_lr=float(tcfg["lr"]),

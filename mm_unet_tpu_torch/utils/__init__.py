@@ -1,5 +1,6 @@
 """Utilities: the config, seeding, the log tee, preemption, the scalar
-tracker (`tracker`) and JAX -> torch weight conversion (`convert`)."""
+tracker (`tracker`), JAX -> torch weight conversion (`convert`) and the
+backbone warm start from a reference `.pth` (`torch_convert`)."""
 
 from mm_unet_tpu_torch.utils.config import ConfigDict, load_config
 from mm_unet_tpu_torch.utils.logger import Logger
