@@ -1,0 +1,7 @@
+"""An evaluation call's model products over its time, against the configuration's peak (%)."""
+
+from harness import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "serve")
