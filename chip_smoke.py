@@ -2551,14 +2551,14 @@ def lm_scoring(cfg: dict, seed: int, rng, report, tag: str) -> tuple:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ops = call_device_ops(lambda: lm(ids), reps=2)
-        profile_step(f"{tag} scoring forward", lambda: lm(ids))
+        prof = profile_step(f"{tag} scoring forward", lambda: lm(ids))
     wall = sum(times) / len(times)
     report("scoring", bool(torch.isfinite(logits).all())
            and launches == {"mamba_fused_scan": n_layer, "selective_scan": 0}
            and per_fwd == {"mamba_fused_scan": n_layer},
            batch=B, tokens=L, logits=list(logits.shape), launches=launches, expected=per_fwd,
            tokens_per_s=B * L / wall, wall_ms=wall * 1e3, device_ms=ops["device_ms"],
-           busy_share=ops["device_ms"] / (wall * 1e3), device_launches=ops["launches"],
+           busy_share=prof["busy_share"], device_launches=ops["launches"],
            max_memory_allocated_bytes=peak, build_s=t_build, card=smi())
     return lm, ids, logits, launches
 
@@ -3532,24 +3532,6 @@ def phase12_zoo(seed: int) -> dict:
     return {"launches": hwa["kernel_launches"], "fwd_steps": fwd, "bwd_steps": bwd}
 
 
-_KERNEL_GROUPS = (
-    ("mamba_fused_scan", FWD_KERNELS),
-    ("mamba_fused_scan_bwd pass C", ("mamba_bwd_chunk",)),
-    ("mamba_fused_scan_bwd passes A, B, D", ("mamba_bwd_",)),
-    ("tap_conv", ("tap_conv_kernel",)),
-    ("tap_conv_bwd", ("tap_dfeat_kernel", "tap_dkernel_kernel")),
-    ("selective_scan", SCAN_FWD_KERNELS),
-    ("selective_scan_bwd pass C", ("scan_bwd_chunk",)),
-    ("selective_scan_bwd passes A, B", ("scan_bwd_",)),
-    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "dgrad", "fprop")),
-    ("matmul / einsum", ("gemm", "cutlass", "cublas", "sm90_", "sm80_")),
-    ("norm", ("norm",)),
-    ("interpolate / pool", ("upsample", "pool")),
-    ("copy / cat / permute", ("copy", "cat", "transpose")),
-    ("elementwise / reduce", ("elementwise", "reduce", "vectorized")),
-)
-
-
 # phase 13: the parallel family at world size 1 on the card (one H100 holds
 # one NCCL rank; the multi-rank arithmetic is the CPU tests'), then the
 # last tools
@@ -3946,30 +3928,39 @@ def phase13(seed: int, p9: dict) -> dict:
 
 def profile_step(path: str, step) -> dict:
     """One profiled call of `step` (already warm): device time by layer and
-    the top kernels, and the share of the wall time the device was busy
+    the top kernels, the share of the wall time in which some device
+    operation ran (the union of their intervals, read by the benchmark's
+    `portbench/harness/trace.py::Trace`), and the intervals of the port's
+    spans (`utils/spans.py`) by name, in ms from the trace's first event
     (printed; returns wall_ms, device_ms, busy_share and launches)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mm_unet_tpu_torch.utils.spans import NAMES
+    from portbench.harness.trace import Trace, group_of
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_s = time.perf_counter() - t0
+    trace = Trace(prof, wall_s)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups: dict[str, float] = {}
-    for e in kernels:
-        name = e.key.lower()
-        group = next((g for g, frags in _KERNEL_GROUPS if any(f in name for f in frags)), "other")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    numbers = dict(wall_ms=wall_ms, device_ms=total_ms, busy_share=total_ms / wall_ms,
-                   launches=sum(e.count for e in kernels))
+    events = prof.events()
+    origin = min(e.time_range.start for e in events)
+    spans: dict[str, list] = {}
+    for e in events:
+        if e.name in NAMES:
+            spans.setdefault(e.name, []).append(
+                [(e.time_range.start - origin) / 1e3, (e.time_range.end - origin) / 1e3])
+    numbers = dict(wall_ms=wall_s * 1e3, device_ms=sum(trace.group_ms.values()),
+                   busy_share=trace.busy_s / wall_s, launches=trace.launches)
     print(f"profile {path} " + json.dumps(dict(
-        **numbers, by_layer_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count)
-                     for e in top],
+        **numbers, by_layer_ms=dict(sorted(trace.group_ms.items(), key=lambda kv: -kv[1])),
+        top_kernels=[dict(name=e.key[:90], group=group_of(e.key),
+                          ms=e.self_device_time_total / 1e3, calls=e.count) for e in top],
+        spans_ms={k: sorted(v) for k, v in spans.items()},
         card=smi())), flush=True)
     return numbers
 

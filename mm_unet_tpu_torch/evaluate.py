@@ -6,10 +6,13 @@ sigmoid > 0.5.
 On the card one batch stays in flight, as in `train/loop.py`: each batch is
 staged through pinned host memory (`stage`), and its loss, prediction and
 labels are read back through `HostCopy` after the next batch is issued, so
-the host waits on that copy's event alone."""
+the host waits on that copy's event alone. Each call's phases are timed as
+the spans `eval.data`, `eval.forward`, `eval.copy_wait` and `eval.metrics`
+(`utils/spans.py`)."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch.nn as nn
 
 from mm_unet_tpu_torch.train.loop import HostCopy, stage
 from mm_unet_tpu_torch.train.predictor import make_predictor
+from mm_unet_tpu_torch.utils.spans import span
 
 
 def val_one_epoch(model: nn.Module, loss_fn: Callable, inferer: Callable,
@@ -42,22 +46,31 @@ def val_one_epoch(model: nn.Module, loss_fn: Callable, inferer: Callable,
     def flush(entry):
         nonlocal step
         i, copy = entry
-        host = copy.get()
-        losses.append(float(host["loss"]))
-        for m in metrics.values():
-            m(y_pred=host["preds"], y=host["labels"])
-        print(f"Epoch [{epoch + 1}/{num_epochs}] Validation [{i + 1}/{n_batches}] "
-              f"Loss: {losses[-1]:1.5f}", flush=True)
-        if tracker is not None:
-            tracker.log({"Val/total_loss": losses[-1]}, step=step)
-        step += 1
+        with span("eval.copy_wait"):
+            host = copy.get()
+        with span("eval.metrics"):
+            losses.append(float(host["loss"]))
+            for m in metrics.values():
+                m(y_pred=host["preds"], y=host["labels"])
+            print(f"Epoch [{epoch + 1}/{num_epochs}] Validation [{i + 1}/{n_batches}] "
+                  f"Loss: {losses[-1]:1.5f}", flush=True)
+            if tracker is not None:
+                tracker.log({"Val/total_loss": losses[-1]}, step=step)
+            step += 1
 
-    for i, batch in enumerate(val_loader):
-        images, labels = stage(batch["image"], device), stage(batch["label"], device)
-        logits = inferer(images, predictor)
-        total, _ = loss_fn(logits, labels)
-        preds = (torch.sigmoid(logits) > 0.5).float()
-        entry = (i, HostCopy({"loss": total, "preds": preds, "labels": labels}))
+    batches = iter(val_loader)
+    for i in itertools.count():
+        try:
+            with span("eval.data"):  # the loader's wait included
+                batch = next(batches)
+                images, labels = stage(batch["image"], device), stage(batch["label"], device)
+        except StopIteration:
+            break
+        with span("eval.forward"):
+            logits = inferer(images, predictor)
+            total, _ = loss_fn(logits, labels)
+            preds = (torch.sigmoid(logits) > 0.5).float()
+            entry = (i, HostCopy({"loss": total, "preds": preds, "labels": labels}))
         if pending is not None:
             flush(pending)
         pending = entry

@@ -18,10 +18,14 @@ are copied into pinned host buffers, non-blocking, behind that step, and an
 event is recorded after the copy (`HostCopy`). The host reads them only
 after it has issued the next step, and then waits on that event alone, so
 nothing waits on the whole stream until the epoch's closing synchronise.
+
+Each step's phases are timed as the spans `train.data`, `train.step`,
+`train.copy_wait` and `train.metrics` (`utils/spans.py`).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Iterable, Mapping
 
@@ -30,6 +34,7 @@ import torch
 
 from mm_unet_tpu_torch.parallel.mesh import shard_batch
 from mm_unet_tpu_torch.train.trainer import TrainState, train_step
+from mm_unet_tpu_torch.utils.spans import span
 
 
 def stage(x, device: torch.device) -> torch.Tensor:
@@ -88,8 +93,9 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
 
     `tracker` (a `ScalarTracker`) gets each step's scalars as "Train/<name>"
     at the step's count, and the epoch's metrics at the step count after
-    the epoch. `stop` (a `GracefulShutdown`) is read before each step: once
-    it is requested the epoch ends there, and the caller checkpoints."""
+    the epoch. `stop` (a `GracefulShutdown`) is read before each step,
+    before its batch is drawn: once it is requested the epoch ends there,
+    and the caller checkpoints."""
     device, dp = next(state.model.parameters()).device, state.dp
     t0 = time.perf_counter()
     n_img = 0
@@ -98,31 +104,40 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
 
     def flush(entry):
         i, step, scalars, stats = entry
-        scalars, stats = scalars.get(), stats.get()
-        if dp is not None:  # the global batch's losses and statistics
-            scalars = dp.host_sum(scalars)
-            stats.update({k: dp.host_gather(stats[k])
-                          for k in ("inter", "psum", "tsum", "weight")})
-        print(f"Epoch [{epoch + 1}/{num_epochs}] Training [{i + 1}/{n_batches}] "
-              f"Loss: {float(scalars['total_loss']):1.5f}", flush=True)
-        if tracker is not None:
-            tracker.log({f"Train/{k}": v.item() for k, v in scalars.items()}, step=step)
-        for m in metrics.values():
-            m.update_stats(stats)
+        with span("train.copy_wait"):
+            scalars, stats = scalars.get(), stats.get()
+        with span("train.metrics"):
+            if dp is not None:  # the global batch's losses and statistics
+                scalars = dp.host_sum(scalars)
+                stats.update({k: dp.host_gather(stats[k])
+                              for k in ("inter", "psum", "tsum", "weight")})
+            print(f"Epoch [{epoch + 1}/{num_epochs}] Training [{i + 1}/{n_batches}] "
+                  f"Loss: {float(scalars['total_loss']):1.5f}", flush=True)
+            if tracker is not None:
+                tracker.log({f"Train/{k}": v.item() for k, v in scalars.items()}, step=step)
+            for m in metrics.values():
+                m.update_stats(stats)
 
-    for i, batch in enumerate(train_loader):
+    batches = iter(train_loader)
+    for i in itertools.count():
         if stop is not None and stop_requested(stop, dp):
             break  # preemption: stop at a step boundary; the caller checkpoints
-        n_img += batch["image"].shape[0]
-        weight = None
-        if dp is not None:
-            batch, weight = shard_batch({"image": batch["image"], "label": batch["label"]},
-                                        dp.rank, dp.world)
-            weight = stage(weight, device)
-        images, labels = stage(batch["image"], device), stage(batch["label"], device)
-        step = state.step
-        scalars, stats = train_step(state, images, labels, loss_fn, sample_weight=weight)
-        entry = (i, step, HostCopy(scalars), HostCopy(stats))
+        try:
+            with span("train.data"):  # the loader's wait included
+                batch = next(batches)
+                n_img += batch["image"].shape[0]
+                weight = None
+                if dp is not None:
+                    batch, weight = shard_batch({"image": batch["image"],
+                                                 "label": batch["label"]}, dp.rank, dp.world)
+                    weight = stage(weight, device)
+                images, labels = stage(batch["image"], device), stage(batch["label"], device)
+        except StopIteration:
+            break
+        with span("train.step"):
+            step = state.step
+            scalars, stats = train_step(state, images, labels, loss_fn, sample_weight=weight)
+            entry = (i, step, HostCopy(scalars), HostCopy(stats))
         if pending is not None:
             flush(pending)
         pending = entry

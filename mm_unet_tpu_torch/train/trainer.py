@@ -9,6 +9,9 @@ Under data parallelism (`TrainState.dp`, `parallel/mesh.py`) the step is the
 JAX package's SPMD step on a `data` mesh: each rank's weighted loss is
 scaled to its share of the global batch's weighted mean, and the gradients
 are summed over the ranks before the update (ZeRO-1: `parallel/zero.py`).
+
+A step's forward, backward and optimizer update are timed as the spans
+`train.forward`, `train.backward` and `train.optimizer` (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from mm_unet_tpu_torch.parallel.mesh import DataParallel
 from mm_unet_tpu_torch.parallel.zero import ZeroAdamW
 from mm_unet_tpu_torch.train.losses import LOSS_REGISTRY
 from mm_unet_tpu_torch.train.optim import build_optimizer, set_lr, warmup_cosine_epoch_schedule
+from mm_unet_tpu_torch.utils.spans import span
 from mm_unet_tpu_torch.utils.torch_convert import warm_start
 
 
@@ -135,16 +139,19 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     model.train()
     set_lr(state.optimizer, state.schedule(state.step))
     state.optimizer.zero_grad(set_to_none=True)
-    logits = model(images)
-    total, losses = loss_fn(logits, labels, weight=sample_weight)
-    if dp is not None:
-        w = sample_weight.detach().sum().to(torch.float32).reshape(1)
-        scale = torch.clamp(w, min=1.0) / torch.clamp(dp.all_reduce(w.clone()), min=1.0)
-        total, losses = total * scale[0], {k: v * scale[0] for k, v in losses.items()}
-    total.backward()
-    if dp is not None:
-        dp.all_reduce_grads(model.parameters())
-    state.optimizer.step()
+    with span("train.forward"):
+        logits = model(images)
+        total, losses = loss_fn(logits, labels, weight=sample_weight)
+        if dp is not None:
+            w = sample_weight.detach().sum().to(torch.float32).reshape(1)
+            scale = torch.clamp(w, min=1.0) / torch.clamp(dp.all_reduce(w.clone()), min=1.0)
+            total, losses = total * scale[0], {k: v * scale[0] for k, v in losses.items()}
+    with span("train.backward"):
+        total.backward()
+        if dp is not None:
+            dp.all_reduce_grads(model.parameters())
+    with span("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
     scalars = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
     return scalars, seg_stats(logits.detach(), labels, sample_weight)
