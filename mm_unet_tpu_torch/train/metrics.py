@@ -34,6 +34,8 @@ def _div(num, den):
 
 
 class Metric:
+    takes_stats = True  # fed by `update_stats`; False: it needs the masks themselves
+
     def __init__(self, include_background: bool = True):
         self.include_background = include_background
         self.reset()
@@ -107,6 +109,8 @@ class HausdorffDistanceMetric(Metric):
     """Symmetric percentile Hausdorff distance between the surfaces of
     binary masks, one value per (sample, channel), NaN where either mask is
     empty; `aggregate` is the NaN-aware mean. Fed by `update` only."""
+
+    takes_stats = False
 
     def __init__(self, include_background: bool = True, percentile: float = 95.0):
         self.percentile = percentile

@@ -27,9 +27,16 @@ The loops' spans (`NAMES`), one occurrence per step or call each:
   data-parallel gradient all-reduce), `train.optimizer` (the optimizer's
   step);
 - `evaluate.py::val_one_epoch`, in order and not overlapping: `eval.data`
-  (the loader and `stage`), `eval.forward` (the inferer, the loss, the
-  threshold and the `HostCopy` issue), `eval.copy_wait` (`HostCopy.get`),
-  `eval.metrics` (the metrics' updates, the print and the tracker).
+  (the loader and `stage`), `eval.forward` (the inferer, the loss,
+  `seg_stats`, the threshold where a metric needs the masks, and the
+  `HostCopy` issue), `eval.copy_wait` (`HostCopy.get`), `eval.metrics`
+  (`update_stats` of the metrics that take the counts, the updates of
+  those that need the masks, the print and the tracker).
+
+Not in `NAMES`, since it does not occur in every call: `eval.masks`,
+inside `eval.metrics`, the updates of the metrics that need the masks
+themselves (HD95); counted once per call that reads masks back, never
+where every metric takes `seg_stats`' counts.
 """
 
 from __future__ import annotations

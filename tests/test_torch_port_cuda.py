@@ -578,3 +578,40 @@ def test_loops_never_wait_on_the_whole_stream():
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize = real
     assert len(calls) == 1 and state.step == 2
+
+
+@pytest.mark.cuda
+def test_seg_stats_on_the_card_are_the_host_mask_stats():
+    """`trainer.seg_stats` on the card against `metrics.mask_stats` of the
+    same thresholded masks on the host, at the serving cell's (32, 1, 512,
+    512), exactly: the counts are integers, exact in f32 below 2^24 pixels a
+    plane. Sample 0 predicts nothing and has no target, sample 1 predicts and
+    holds every pixel, so the metrics' 0/0 (NaN) cases are reached; the seven
+    metrics fed either way aggregate to the same bits."""
+    from mm_unet_tpu_torch.train.metrics import build_metrics, mask_stats
+    from mm_unet_tpu_torch.train.trainer import seg_stats
+
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (32, 1, 512, 512)
+    logits = torch.randn(shape, generator=g, device=dev) * 4
+    labels = (torch.rand(shape, generator=g, device=dev) < 0.3).float()
+    logits[0], labels[0] = -10.0, 0.0
+    logits[1], labels[1] = 10.0, 1.0
+    stats = seg_stats(logits, labels)
+    preds = (torch.sigmoid(logits) > 0.5).float().cpu().numpy()
+    want = mask_stats(preds, labels.cpu().numpy())
+    got = {k: stats[k].cpu().numpy() for k in ("inter", "psum", "tsum")}
+    assert stats["npix"] == want["npix"] == 512 * 512
+    for k, v in got.items():
+        assert v.shape == (32, 1) and v.dtype == np.float32, k
+        np.testing.assert_array_equal(v.astype(np.float64), want[k], err_msg=k)
+    assert got["psum"][0, 0] == got["tsum"][0, 0] == 0
+    assert got["inter"][1, 0] == got["psum"][1, 0] == got["tsum"][1, 0] == 512 * 512
+    from_stats, from_masks = build_metrics(), build_metrics()
+    for m in from_stats.values():
+        m.update_stats({**got, "npix": stats["npix"]})
+    for m in from_masks.values():
+        m(y_pred=preds, y=labels.cpu().numpy())
+    for name, m in from_stats.items():
+        np.testing.assert_array_equal(m.aggregate(), from_masks[name].aggregate(), err_msg=name)

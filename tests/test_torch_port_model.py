@@ -36,6 +36,7 @@ from mm_unet_tpu_torch.models.mm_unet import MM_Net, validate_input_size
 from mm_unet_tpu_torch.train.inferers import SlidingWindowInferer, sliding_window_inference
 from mm_unet_tpu_torch.train.losses import dice_focal_loss
 from mm_unet_tpu_torch.train.predictor import make_predictor
+from mm_unet_tpu_torch.utils import spans
 from mm_unet_tpu_torch.utils.convert import jax_to_torch_state_dict
 from torch_port_harness import assert_close, load_torch, randomize_batch_stats
 
@@ -146,10 +147,10 @@ def test_validate_input_size_matches_jax(hw, ns):
 
 def test_val_one_epoch_matches_its_parts():
     """The validation loop over two batches: its losses are DiceFocal of the
-    sliding-window logits, and its metrics are the shared numpy metrics of
-    the thresholded prediction (the port's metrics, checked against the
-    JAX package's). The loss comes in `make_loss_fn`'s (total, losses) form,
-    as the JAX loop takes it."""
+    sliding-window logits, and its metrics, fed `seg_stats`' counts, are the
+    JAX package's numpy metrics of the thresholded prediction; no mask is
+    read back (no `eval.masks` span). The loss comes in `make_loss_fn`'s
+    (total, losses) form, as the JAX loop takes it."""
     from mm_unet_tpu.train.metrics import build_metrics
     from mm_unet_tpu_torch.train.metrics import build_metrics as port_build_metrics
     from mm_unet_tpu_torch.train.trainer import make_loss_fn
@@ -161,8 +162,10 @@ def test_val_one_epoch_matches_its_parts():
                 "label": (rng.random((n, 1, 64, 64)) < 0.3).astype(np.float32)} for n in (2, 1)]
     inferer = SlidingWindowInferer((64, 64), overlap=0.5)
     loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    spans.reset()
     f1, metric, losses = val_one_epoch(model, loss_fn, inferer, batches,
                                        port_build_metrics())
+    assert "eval.masks" not in spans.snapshot()  # the seven take the counts alone
     predictor = make_predictor(model)
     want_metrics = build_metrics()
     for i, b in enumerate(batches):
@@ -177,6 +180,48 @@ def test_val_one_epoch_matches_its_parts():
         np.testing.assert_allclose(metric[f"Val/mean {name}"], np.nanmean(m.aggregate()),
                                    rtol=1e-6)
     assert f1 == metric["Val/mean f1"]
+
+
+def test_val_one_epoch_feeds_the_counts_and_reads_masks_for_hd95():
+    """With HD95 beside the seven metrics: the seven take `seg_stats`'
+    counts and their aggregates are those of the same metrics fed the
+    thresholded masks of the loop's own logits (`mask_stats`), bit for bit;
+    HD95 gets the masks, read back once a call (span `eval.masks`)."""
+    from mm_unet_tpu_torch.train.metrics import HausdorffDistanceMetric, build_metrics
+    from mm_unet_tpu_torch.train.trainer import make_loss_fn
+
+    model = give_model("MM_Net", device="cpu", generator=torch.Generator().manual_seed(5),
+                       mamba_dtype=None, **TINY)
+    rng = np.random.default_rng(6)
+    batches = [{"image": rng.standard_normal((n, 3, 64, 64)).astype(np.float32),
+                "label": (rng.random((n, 1, 64, 64)) < 0.3).astype(np.float32)} for n in (2, 1)]
+    inferer = SlidingWindowInferer((64, 64), overlap=0.5)
+    logits = []
+
+    def keep(images, predictor):
+        logits.append(inferer(images, predictor))
+        return logits[-1]
+
+    metrics = {**build_metrics(), "hd95": HausdorffDistanceMetric(percentile=95)}
+    got = {}
+    for name, m in metrics.items():  # keep each aggregate before the loop resets it
+        m.aggregate = lambda name=name, agg=m.aggregate: got.setdefault(name, agg())
+    loss_fn = make_loss_fn({"dice_focal_loss": {}}, {"dice_focal_loss": 1.0})
+    spans.reset()
+    _, metric, _ = val_one_epoch(model, loss_fn, keep, batches, metrics)
+    assert spans.snapshot()["eval.masks"][0] == len(batches)
+    want = {**build_metrics(), "hd95": HausdorffDistanceMetric(percentile=95)}
+    for out, b in zip(logits, batches):
+        preds = (torch.sigmoid(out) > 0.5).float().numpy()
+        assert 0 < preds.mean() < 1  # neither mask path is trivial
+        for m in want.values():
+            m(y_pred=preds, y=b["label"])
+    assert set(got) == set(want)
+    for name, m in want.items():
+        agg = m.aggregate()
+        np.testing.assert_array_equal(got[name], agg, err_msg=name)
+        np.testing.assert_array_equal(metric[f"Val/mean {name}"], np.nanmean(agg))
+    assert np.isfinite(got["hd95"]).all()
 
 
 def test_convert_is_strict_and_inverts_the_tables(tiny):
