@@ -6,7 +6,12 @@ Every MMConv launches one tap-conv (kernel 3; kernel 4 in its backward) at
 its input's resolution, and its TFM Mamba (d_model k, so D = 2k channels,
 dt_rank 1) three fused scans (kernels 1/2: forward, reverse and slice
 directions) over its H W tokens; each RCG's Mamba (d_model 64: D 128,
-dt_rank 4) three over the (2H)(2W) tokens of its upsampled map."""
+dt_rank 4) three over the (2H)(2W) tokens of its upsampled map.
+
+With `remat` on, every MMConv runs its sample-and-conv part (the tap-conv
+and its GroupNorm) again in the backward pass: one more forward launch of
+kernel 3 per MMConv in a training step; its Mamba and the backward kernels
+run once."""
 
 from __future__ import annotations
 
@@ -57,3 +62,12 @@ def kernel_shapes(cfg: dict, batch: int, size: int) -> dict:
         decoder(res, 2 * dec, dec)
         mmconv(2 * res, dec, dec // 4)
     return {"mamba_fused": sorted(scans.items()), "tap_conv": sorted(taps.items())}
+
+
+def recomputed_shapes(cfg: dict, batch: int, size: int) -> dict:
+    """The forward launches a training step runs again in its backward, as
+    `kernel_shapes` gives them: every tap-conv once more with `remat` on
+    (the model's default), nothing with it off."""
+    if not cfg["model_kwargs"].get("remat", True):
+        return {}
+    return {"tap_conv": kernel_shapes(cfg, batch, size)["tap_conv"]}

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import sys
 import time
 
@@ -25,6 +26,14 @@ from harness.data import synthetic_pool
 from harness.refrun import reference_train
 from harness.spec import Cell, sub_seed
 from harness.weights import seeded_state
+
+# each hand-written kernel family's launch counters in the port: the
+# function whose `launches` and `bwd_launches` count them, by module
+COUNTERS = {
+    "mamba_fused": ("mm_unet_tpu_torch.ops.mamba_fused", "mamba_fused_scan"),
+    "tap_conv": ("mm_unet_tpu_torch.ops.tap_conv", "tap_conv"),
+    "selective_scan": ("mm_unet_tpu_torch.ops.chunked_scan", "selective_scan_chunked"),
+}
 
 
 class Cycle:
@@ -144,11 +153,12 @@ class Entry:
         return loader.served * int(self.traffic["batch"])
 
     def counters(self) -> dict:
-        from mm_unet_tpu_torch.ops.mamba_fused import mamba_fused_scan
-        from mm_unet_tpu_torch.ops.tap_conv import tap_conv
-
-        return {"mamba_fused": (mamba_fused_scan.launches, mamba_fused_scan.bwd_launches),
-                "tap_conv": (tap_conv.launches, tap_conv.bwd_launches)}
+        """{family: (forward, backward) launches so far} (`COUNTERS`)."""
+        out = {}
+        for fam, (module, name) in COUNTERS.items():
+            fn = getattr(importlib.import_module(module), name)
+            out[fam] = (fn.launches, fn.bwd_launches)
+        return out
 
     def free(self) -> None:
         del self.state, self.loss_fn, self.metrics

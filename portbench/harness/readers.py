@@ -29,11 +29,13 @@ def mfu(ctx: dict, kind: str):
 
 
 def roofline(ctx: dict, kind: str, family: str):
-    """% of the family's device time that its least time is."""
+    """% of the family's device time that its least time is; None where the
+    configuration gives the family no launches."""
     ms = ctx["trace"].family_ms(family)
-    if ctx["kind"] != kind or ms <= 0:
+    least = ctx["least_ms_per_step"].get(family)
+    if ctx["kind"] != kind or ms <= 0 or least is None:
         return None
-    return 100.0 * ctx["least_ms_per_step"][family] * ctx["steps"] / ms
+    return 100.0 * least * ctx["steps"] / ms
 
 
 def group_ms(ctx: dict, kind: str, group: str):

@@ -1,7 +1,10 @@
 """The plain reference run on the benchmark's own weights and inputs:
 training steps with the reference's loss and AdamW, or an evaluation
 forward in blocks of rows. `quant` and `tf32` make it the lower-precision
-control."""
+control. The reference module (`reference/<module>.py`) may give the input
+its model reads from a batch, `model_input(batch)`, and its loss,
+`loss(out, batch)`; an image model's are the default, `batch["image"]` and
+DiceFocal against `batch["label"]`."""
 
 from __future__ import annotations
 
@@ -13,6 +16,23 @@ from harness.spec import Cell
 def _tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
     torch.backends.cudnn.allow_tf32 = on
+
+
+def image_input(batch: dict) -> torch.Tensor:
+    return batch["image"]
+
+
+def image_loss(out: torch.Tensor, batch: dict) -> torch.Tensor:
+    from reference.train import dice_focal
+
+    return dice_focal(out, batch["label"])
+
+
+def input_and_loss(cell: Cell):
+    """(model_input, loss) of the cell's reference module, the image
+    model's where it gives none."""
+    mod = cell.reference()
+    return getattr(mod, "model_input", image_input), getattr(mod, "loss", image_loss)
 
 
 def build_reference(cell: Cell, state: dict, device, quant=None):
@@ -31,8 +51,9 @@ def reference_train(cell: Cell, state: dict, batches: list, dropout_seed: int, d
     after the last}, "logits": the first step's output}; with `keep`, also
     the tensors ("grad_t", "change1_t", "change_t", on the CPU)."""
     from reference.plain import set_dropout_generator
-    from reference.train import AdamW, dice_focal
+    from reference.train import AdamW
 
+    model_input, loss_of = input_and_loss(cell)
     _tf32(tf32)
     try:
         model = build_reference(cell, state, device, quant)
@@ -54,9 +75,9 @@ def reference_train(cell: Cell, state: dict, batches: list, dropout_seed: int, d
         for b in batches:
             for p in model.parameters():
                 p.grad = None
-            out = model(b["image"])
+            out = model(model_input(b))
             first = out.detach() if first is None else first
-            loss = dice_focal(out, b["label"])
+            loss = loss_of(out, b)
             loss.backward()
             if "grad" not in res:
                 g = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -77,20 +98,19 @@ def reference_train(cell: Cell, state: dict, batches: list, dropout_seed: int, d
 @torch.no_grad()
 def reference_eval(cell: Cell, state: dict, batches: dict, device, rows: int,
                    quant=None, tf32: bool = False) -> dict:
-    """{"logits": {key: (B, K, H, W)}, "losses": {key: DiceFocal}} of the
-    reference in eval mode over `batches` ({key: batch}), `rows` images
-    at a time."""
-    from reference.train import dice_focal
-
+    """{"logits": {key: the model's output}, "losses": {key: loss}} of the
+    reference in eval mode over `batches` ({key: batch}), `rows` rows of
+    the input at a time."""
+    model_input, loss_of = input_and_loss(cell)
     _tf32(tf32)
     try:
         model = build_reference(cell, state, device, quant).eval()
         logits, losses = {}, {}
         for key, b in batches.items():
-            x = b["image"]
+            x = model_input(b)
             out = torch.cat([model(x[i:i + rows]) for i in range(0, x.shape[0], rows)])
             logits[key] = out
-            losses[key] = float(dice_focal(out, b["label"]))
+            losses[key] = float(loss_of(out, b))
         return {"logits": logits, "losses": losses}
     finally:
         _tf32(False)

@@ -2,9 +2,9 @@
 root of the checkout, a configuration's file (`configs/<config>.json`; the
 module its `module` key names holds the kernel-shape function,
 `configs/<module>.py`, and the plain reference, `reference/<module>.py`),
-a traffic mix (`traffic/<traffic>.json`), a cell's
-limits (`workloads/<cell>.json`) and a per-layer metric's reader
-(`metrics/<metric>.py`)."""
+a traffic mix (`traffic/<traffic>.json`; the entry its `entry` key names,
+`entries/<entry>.py`), a cell's limits (`workloads/<cell>.json`) and a
+per-layer metric's reader (`metrics/<metric>.py`)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,9 @@ from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
+# the end-to-end rate of each kind of entry (`Entry.kind`) in a cell made
+# from data given here (`Cell.of`)
+RATES = {"train": "train_images_per_s", "serve": "serve_images_per_s"}
 
 
 def benchmark() -> dict:
@@ -58,7 +61,7 @@ class Cell:
         cell.name, cell.entry, cell.config_name = name, {"chips": 1}, config_name
         cell.config, cell.traffic, cell.limits, cell.chips = config, traffic, limits, 1
         bench = bench if bench is not None else benchmark()
-        rate = "train_images_per_s" if traffic["entry"] == "train_loop" else "serve_images_per_s"
+        rate = RATES[entry_class(traffic["entry"]).kind]
         cell.end_to_end = [m for m in bench["end_to_end"]
                            if m["name"] in (rate, "peak_mem_gib", "setup_s")]
         cell.per_layer = [m for m in bench["per_layer"] if m["moves"] == rate]
@@ -66,13 +69,31 @@ class Cell:
 
     def kernel_shapes(self) -> dict:
         """The configuration's kernel shapes of one forward at this cell's
-        batch and size (`configs/<module>.py::kernel_shapes`)."""
-        mod = importlib.import_module(f"configs.{self.config['module']}")
-        return mod.kernel_shapes(self.config, int(self.traffic["batch"]),
-                                 int(self.traffic["size"]))
+        batch and size (`configs/<module>.py::kernel_shapes`): {family:
+        [(shape, launches)]}."""
+        return self._shapes(self._config_module().kernel_shapes)
+
+    def recomputed_shapes(self) -> dict:
+        """The forward launches a training step runs again in its backward
+        (remat), as `kernel_shapes` gives them
+        (`configs/<module>.py::recomputed_shapes`); none where the module
+        has no such function."""
+        fn = getattr(self._config_module(), "recomputed_shapes", None)
+        return self._shapes(fn) if fn else {}
+
+    def _config_module(self):
+        return importlib.import_module(f"configs.{self.config['module']}")
+
+    def _shapes(self, fn) -> dict:
+        return fn(self.config, int(self.traffic["batch"]), int(self.traffic["size"]))
 
     def reference(self):
         return importlib.import_module(f"reference.{self.config['module']}")
+
+
+def entry_class(name: str):
+    """`Entry` of `entries/<name>.py`."""
+    return importlib.import_module(f"entries.{name}").Entry
 
 
 def metric_reader(name: str):

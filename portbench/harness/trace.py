@@ -9,7 +9,9 @@ from __future__ import annotations
 import bisect
 
 # groups of device operations by name fragment, the first match winning
-# (`chip_smoke.py`'s `_KERNEL_GROUPS`, with AdamW's fused kernel first)
+# (`chip_smoke.py`'s `_KERNEL_GROUPS`, with AdamW's fused kernel first and
+# PyTorch's scaled-dot-product attention kernels (flash, memory-efficient,
+# cuDNN) ahead of the convolution and matmul groups their names would fall in)
 KERNEL_GROUPS = (
     ("optimizer (AdamW)", ("adam",)),
     ("mamba_fused_scan", ("mamba_chunk_kernel", "mamba_combine_kernel", "mamba_fwd_xdbl")),
@@ -20,6 +22,7 @@ KERNEL_GROUPS = (
     ("selective_scan", ("scan_fwd_", "scan_combine_kernel")),
     ("selective_scan_bwd pass C", ("scan_bwd_chunk",)),
     ("selective_scan_bwd passes A, B", ("scan_bwd_",)),
+    ("attention", ("flash_fwd", "flash_bwd", "fmha", "attention", "sdpa")),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "dgrad", "fprop")),
     ("matmul / einsum", ("gemm", "cutlass", "cublas", "sm90_", "sm80_")),
     ("norm", ("norm",)),
@@ -33,6 +36,8 @@ FAMILIES = {
     "mamba_fused": ("mamba_fused_scan", "mamba_fused_scan_bwd pass C",
                     "mamba_fused_scan_bwd passes A, B, D"),
     "tap_conv": ("tap_conv", "tap_conv_bwd"),
+    "selective_scan": ("selective_scan", "selective_scan_bwd pass C",
+                       "selective_scan_bwd passes A, B"),
 }
 
 

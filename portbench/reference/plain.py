@@ -238,25 +238,28 @@ def selective_scan(u, dt, A, Bm, Cm):
     """y_t = C_t . h_t over h_t = exp(dt_t A) h_(t-1) + dt_t B_t u_t, h_0 = 0.
     u, dt (B, D, L) f32; A (D, N); Bm, Cm (B, N, L). Returns (B, D, L).
     A small scan runs by recursive doubling over all its tokens; a larger
-    one in blocks of a power of two of tokens (L a multiple of the block),
-    each recomputed in the backward pass."""
+    one in blocks of a power of two of tokens, the last block shorter where
+    L is no multiple of the block, each recomputed in the backward pass.
+    Tokens appended to make L a multiple of `SUB` come after every real one,
+    so they change no output that is kept."""
     bsz, d, length = u.shape
     n = A.shape[1]
     per_token = bsz * d * n * 4
     if per_token * length <= SMALL_SCAN_BYTES:
         return _doubling(u, dt, A, Bm, Cm)
     t = max(SUB, 1 << int(math.log2(max(SCAN_BLOCK_BYTES // per_token, 1))))
-    if length % t:
-        raise ValueError(f"selective_scan: {length} tokens do not split into blocks of {t}")
+    pad = -length % SUB
+    if pad:
+        u, dt, Bm, Cm = (F.pad(v, (0, pad)) for v in (u, dt, Bm, Cm))
     h = u.new_zeros(bsz, d, n)
     ys = []
     blockwise = torch.is_grad_enabled() and u.device.type != "meta"
-    for s in range(0, length, t):
+    for s in range(0, length + pad, t):
         args = (h, u[..., s:s + t], dt[..., s:s + t], A, Bm[..., s:s + t], Cm[..., s:s + t])
         y, h = (checkpoint(_scan_block, *args, use_reentrant=False) if blockwise
                 else _scan_block(*args))
         ys.append(y)
-    return torch.cat(ys, dim=-1)
+    return torch.cat(ys, dim=-1)[..., :length]
 
 
 DIRECTIONS = {"v3": ("", "_b", "_s"), "none": ("",)}

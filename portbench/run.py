@@ -16,7 +16,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -25,7 +24,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
 
 from harness import compare, device  # noqa: E402
-from harness.spec import Cell, benchmark  # noqa: E402
+from harness.spec import RATES, Cell, benchmark, entry_class  # noqa: E402
 
 GIB = float(1 << 30)
 
@@ -44,7 +43,7 @@ def parse(argv=None) -> argparse.Namespace:
 
 
 def entry_for(cell: Cell, seed: int, dev):
-    return importlib.import_module(f"entries.{cell.traffic['entry']}").Entry(cell, seed, dev)
+    return entry_class(cell.traffic["entry"])(cell, seed, dev)
 
 
 def measure(entry, seconds: float, sync) -> tuple[int, float]:
@@ -65,10 +64,12 @@ def traced(entry, cell: Cell, n: int, items: int, elapsed: float) -> tuple[dict,
 
     from harness.spec import metric_reader
     from harness.trace import Trace
-    from harness.work import least_ms, model_flops
+    from harness.work import launches_per_step, least_ms_per_step, model_flops
 
+    train = entry.kind == "train"
     shapes = cell.kernel_shapes()
-    per_fwd = {k: sum(c for _, c in v) for k, v in shapes.items()}
+    again = cell.recomputed_shapes() if train else {}
+    per_step = launches_per_step(shapes, again, train)
     before = entry.counters()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -77,23 +78,18 @@ def traced(entry, cell: Cell, n: int, items: int, elapsed: float) -> tuple[dict,
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     after = entry.counters()
-    train = entry.kind == "train"
     for fam, (f0, b0) in before.items():
         f1, b1 = after[fam]
-        want = (per_fwd[fam] * n, per_fwd[fam] * n if train else 0)
+        want = tuple(k * n for k in per_step.get(fam, (0, 0)))
         if (f1 - f0, b1 - b0) != want:
             raise SystemExit(f"portbench: {fam} launched {(f1 - f0, b1 - b0)} (forward, backward) "
                              f"over {n} traced steps; the configuration's shapes give {want}")
     trace = Trace(prof, window_s)
     es = 2 if cell.config["product_dtype"] == "bfloat16" else 4
-    least = least_ms(shapes, es, False)
-    if train:
-        back = least_ms(shapes, es, True)
-        least = {k: least[k] + back[k] for k in least}
     batch = int(cell.traffic["batch"])
     ctx = {
         "kind": entry.kind, "steps": n, "trace": trace,
-        "least_ms_per_step": least,
+        "least_ms_per_step": least_ms_per_step(shapes, again, es, train),
         "flops_per_step": model_flops(cell.reference(), cell.config, batch,
                                       int(cell.traffic["size"]), train),
         "peak_flops": float(cell.config["product_peak_flops"]),
@@ -135,8 +131,8 @@ def execute(cell: Cell, seed: int, seconds: float, trace: int, dev, t_start: flo
         result["device"].update(dev_fields)
         log(f"traced stretch read at {time.perf_counter() - t_start:.2f} s")
     else:
-        rate = "train_images_per_s" if entry.kind == "train" else "serve_images_per_s"
-        values = {rate: items / elapsed, "peak_mem_gib": peak / GIB, "setup_s": setup_s}
+        values = {RATES[entry.kind]: items / elapsed, "peak_mem_gib": peak / GIB,
+                  "setup_s": setup_s}
         result["metrics"] = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                              for m in cell.end_to_end}
     result["attempted"] = items // int(cell.traffic["batch"])

@@ -57,15 +57,12 @@ def test_reference_fits_the_port(name):
     assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
-@pytest.mark.parametrize("name", CELLS[:2])
-def test_kernel_shapes_are_the_ports_calls(name, monkeypatch):
-    """configs/<config>.py's shapes of one forward are the fused scans and
-    tap-convs the port's model calls (recorded at its call sites)."""
+def _record_calls(monkeypatch) -> dict:
+    """{family: {shape: calls}} of the fused scans and tap-convs the port's
+    model makes from here on, recorded at its call sites."""
     import mm_unet_tpu_torch.models.layers as layers
     import mm_unet_tpu_torch.models.mamba as mamba
-    from mm_unet_tpu_torch.models import give_model
 
-    cell = tiny_cell(name)
     calls = {"mamba_fused": {}, "tap_conv": {}}
 
     def count(fam, key):
@@ -85,12 +82,44 @@ def test_kernel_shapes_are_the_ports_calls(name, monkeypatch):
 
     monkeypatch.setattr(mamba, "mamba_fused_scan", scan)
     monkeypatch.setattr(layers, "tap_conv", tap)
+    return calls
+
+
+@pytest.mark.parametrize("name", CELLS[:2])
+def test_kernel_shapes_are_the_ports_calls(name, monkeypatch):
+    """configs/<config>.py's shapes of one forward are the fused scans and
+    tap-convs the port's model calls (recorded at its call sites)."""
+    from mm_unet_tpu_torch.models import give_model
+
+    cell = tiny_cell(name)
+    calls = _record_calls(monkeypatch)
     model = give_model(cell.config["model"], device="cpu", **cell.config["model_kwargs"]).eval()
     with torch.no_grad():
         model(torch.randn(2, 3, 64, 64))
     want = cell.kernel_shapes()
     assert sorted(calls["mamba_fused"].items()) == want["mamba_fused"]
     assert sorted(calls["tap_conv"].items()) == want["tap_conv"]
+
+
+@pytest.mark.parametrize("name", ["mm_net_f32_stare.train.b4", "mm_net_f32.train.b32"])
+def test_recomputed_shapes_are_the_ports_calls(name, monkeypatch):
+    """One training step (forward in training mode, backward) calls each
+    launch of `kernel_shapes` once and each of `recomputed_shapes` once
+    more: with remat on every tap-conv twice, with it off once; the scans
+    once."""
+    from mm_unet_tpu_torch.models import give_model
+
+    cell = tiny_cell(name)
+    calls = _record_calls(monkeypatch)
+    model = give_model(cell.config["model"], device="cpu", **cell.config["model_kwargs"]).train()
+    assert model.remat == cell.config["model_kwargs"]["remat"]
+    model(torch.randn(2, 3, 64, 64)).float().square().mean().backward()
+    want = {fam: dict(v) for fam, v in cell.kernel_shapes().items()}
+    for fam, v in cell.recomputed_shapes().items():
+        for shape, n in v:
+            want[fam][shape] += n
+    assert calls == want
+    assert bool(cell.recomputed_shapes()) == cell.config["model_kwargs"]["remat"]
 
 
 def _numbers(cell, quant):
@@ -169,7 +198,9 @@ def _altered_answer(monkeypatch):
 
 FAULTS = [("mm_net_f32.train.b32", _unchanged_state), ("um_net.train.b8", _unchanged_state),
           ("mm_net_f32.train.b32", _half_batch), ("um_net.train.b8", _half_batch),
-          ("mm_net_f32.serve.b32", _altered_answer)]
+          ("mm_net_f32.serve.b32", _altered_answer),
+          ("mm_net_f32_stare.train.b4", _unchanged_state),
+          ("mm_net_f32_stare.train.b4", _half_batch)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS, ids=lambda v: getattr(v, "__name__", v))

@@ -11,8 +11,9 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
-import tiny  # noqa: F401  (puts the benchmark on sys.path)
+from tiny import full_cell  # (also puts the benchmark on sys.path)
 from harness import trace, work
 from harness.spec import BENCH_DIR, ROOT, Cell, benchmark, metric_reader
 
@@ -93,6 +94,83 @@ def test_work_functions_equal_chip_smoke(es, backward):
             chip_smoke.bound(*chip_smoke.tap_work(*shape, es, backward))[0])
 
 
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("es", [2, 4])
+def test_scan_work_equals_chip_smoke(es, backward):
+    import chip_smoke
+
+    for B, Dm, L, N, G, bes, streams, const in ((8, 384, 4096, 16, 1, 4, 3, False),
+                                                (4, 1536, 2048, 16, 4, 2, 2, False),
+                                                (2, 96, 1024, 16, 1, 4, 2, True)):
+        args = (B, Dm, L, N, G, es, bes, streams, backward, const)
+        assert work.scan_work(*args) == chip_smoke.scan_work(*args)
+        got = work.least_ms({"selective_scan": [((B, Dm, L, N, G, bes, streams, const), 3)]},
+                            es, backward)
+        assert got["selective_scan"] == pytest.approx(
+            3 * chip_smoke.bound(*chip_smoke.scan_work(*args))[0], rel=1e-12)
+
+
+# the parent harness's products and least kernel ms of a step at each cell's
+# full size, which the harness's generalisation keeps exactly
+PARENT = {
+    "mm_net_f32.train.b32": (5183951142912.0, {"mamba_fused": 16.59056160143284,
+                                               "tap_conv": 20.7238465719403}),
+    "um_net.train.b8": (2164849901568.0, {"mamba_fused": 1.1963445492537312,
+                                          "tap_conv": 2.705360926567164}),
+    "mm_net_f32.serve.b32": (1380936253440.0, {"mamba_fused": 4.391601549850746,
+                                               "tap_conv": 6.883535444059701}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT))
+def test_existing_cells_read_as_at_the_parent(name):
+    cell = Cell(name, benchmark())
+    train = cell.traffic["entry"] == "train_loop"
+    shapes, again = cell.kernel_shapes(), cell.recomputed_shapes()
+    assert again == {}
+    flops, least = PARENT[name]
+    assert work.least_ms_per_step(shapes, again, 4, train) == least
+    assert work.model_flops(cell.reference(), cell.config, int(cell.traffic["batch"]),
+                            int(cell.traffic["size"]), train) == flops
+
+
+def test_remat_cell_counts_its_recompute():
+    """The 704 remat cell's step: every tap-conv once more in the backward,
+    its forward work added to the least time; the scans once. It reads as
+    a training cell: the training rate and its ten per-layer metrics."""
+    cell = full_cell("mm_net_f32_stare.train.b4")
+    assert {m["name"] for m in cell.end_to_end} == {"train_images_per_s", "peak_mem_gib",
+                                                   "setup_s"}
+    assert sorted(m["name"] for m in cell.per_layer) == sorted(
+        m["name"] for m in benchmark()["per_layer"] if m["name"].endswith(".train"))
+    shapes, again = cell.kernel_shapes(), cell.recomputed_shapes()
+    assert again == {"tap_conv": shapes["tap_conv"]}
+    assert work.launches_per_step(shapes, again, True) == {"mamba_fused": (150, 150),
+                                                           "tap_conv": (94, 47)}
+    fwd, bwd = work.least_ms(shapes, 4, False), work.least_ms(shapes, 4, True)
+    least = work.least_ms_per_step(shapes, again, 4, True)
+    assert least == {"mamba_fused": fwd["mamba_fused"] + bwd["mamba_fused"],
+                     "tap_conv": fwd["tap_conv"] + bwd["tap_conv"] + fwd["tap_conv"]}
+
+
+def test_reference_scan_in_ragged_blocks(monkeypatch):
+    """The reference's block-wise scan over a length that is no multiple of
+    its block, nor of its chunk, equals the scan by doubling."""
+    from reference import plain
+
+    g = torch.Generator().manual_seed(3)
+    b, d, n, length = 2, 3, 4, 75
+    u, dt = torch.randn(b, d, length, generator=g), torch.rand(b, d, length, generator=g)
+    A = -torch.rand(d, n, generator=g) - 0.5
+    Bm, Cm = torch.randn(b, n, length, generator=g), torch.randn(b, n, length, generator=g)
+    want = plain._doubling(u, dt, A, Bm, Cm)
+    monkeypatch.setattr(plain, "SMALL_SCAN_BYTES", 0)
+    monkeypatch.setattr(plain, "SCAN_BLOCK_BYTES", 32 * b * d * n * 4)  # blocks of 32 tokens
+    got = plain.selective_scan(u, dt, A, Bm, Cm)
+    assert got.shape == want.shape
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_arguments():
     import run
 
@@ -123,6 +201,35 @@ def test_trace_groups_first_match():
     assert trace.group_of("void tap_conv_kernel<float>") == "tap_conv"
     assert trace.group_of("cudnn::conv2d_fprop") == "convolution (cuDNN)"
     assert trace.group_of("multi_tensor_apply_kernel<FusedAdamMathFunctor>") == "optimizer (AdamW)"
+
+
+def test_trace_groups_of_the_cells_kernels():
+    """Every kernel name of the cells' traces keeps the group it had before
+    the attention group came in (tests/kernel_names.json)."""
+    names = json.loads((BENCH_DIR / "tests" / "kernel_names.json").read_text())["groups"]
+    assert len(names) > 100
+    assert {n: trace.group_of(n) for n in names} == names
+
+
+@pytest.mark.parametrize("name", [
+    "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 64, 64, 4, false, false, "
+    "cutlass::bfloat16_t, Flash_kernel_traits<128, 64, 64, 4, cutlass::bfloat16_t> >, false, "
+    "true, false, false, true, true, false, false>(pytorch_flash::Flash_fwd_params)",
+    "void pytorch_flash::flash_bwd_dq_dk_dv_loop_seqk_parallel_kernel<Flash_bwd_kernel_traits<128,"
+    " 64, 128, 8, 2, 4, 2, false, false, cutlass::bfloat16_t>, true, false, false, false, false, "
+    "true, false, false>(pytorch_flash::Flash_bwd_params)",
+    "void pytorch_flash::flash_bwd_convert_dq_kernel<Flash_bwd_kernel_traits<128, 64, 128, 8, 2, "
+    "4, 2, false, false, cutlass::bfloat16_t>, true, false>(pytorch_flash::Flash_bwd_params, int)",
+    "fmha_cutlassF_f32_aligned_64x64_rf_sm80(PyTorchMemEffAttention::AttentionKernel<float, "
+    "cutlass::arch::Sm80, true, 64, 64, 64, true, true>::Params)",
+    "fmha_cutlassB_f32_aligned_64x64_k64_sm80(PyTorchMemEffAttention::AttentionBackwardKernel<"
+    "cutlass::arch::Sm80, float, true, false, true, 64, 64, 64, false>::Params)",
+    "cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_3_64x64x128_4x1x1_kernel0_0",
+    "cudnn_generated_fort_native_sdpa_sm90_flash_bprop_wgmma_f16_knob_7_64x128x128_4x1x1"
+    "_kernel0_0",
+])
+def test_trace_groups_attention(name):
+    assert trace.group_of(name) == "attention"
 
 
 def test_imports_name_no_jax_package():
