@@ -20,10 +20,13 @@ Two routes compute the same function:
 Dispatch: `scan_impl="mega"`, or None with d_state % 8 == 0, takes the
 megakernel route; anything else ("pallas", "ref", "assoc", or None with
 another d_state) takes the grouped-scan route with `scan_impl` as the
-scan's implementation. The JAX module also asks for a TPU before it takes
-the megakernel by default (`mamba.py:263-266`); the port does not, on
-purpose: its CPU path is its card path with the kernels' plain versions, so
-a model takes the same route, with the same launch counts, on either device.
+scan's implementation. A mixer with Jamba's dt/B/C norms (`ssm_norm_eps`)
+always takes the grouped-scan route: the norms sit between x_proj and
+dt_proj, which the megakernel computes inside itself. The JAX module also
+asks for a TPU before it takes the megakernel by default
+(`mamba.py:263-266`); the port does not, on purpose: its CPU path is its
+card path with the kernels' plain versions, so a model takes the same
+route, with the same launch counts, on either device.
 
 Returns (out, o_fwd, o_bwd, o_slice) for v3 (the pre-projection direction
 outputs in the reference's domains: o_bwd flipped, o_slice un-interleaved),
@@ -31,7 +34,8 @@ else `out` alone.
 
 Parameter names are the torch reference's (`mm_unet_tpu.utils.torch_convert.
 mamba_pairs`): in_proj, out_proj, conv1d{s}, x_proj{s}, dt_proj{s}, A{s}_log,
-D{s} for each direction suffix s.
+D{s} for each direction suffix s; with `ssm_norm_eps`, Jamba's
+dt_layernorm, b_layernorm and c_layernorm besides.
 
 `tp` (a process group, set by `parallel.tp.shard_params`) makes the module
 tensor-parallel over its channels: the three collectives of
@@ -66,6 +70,14 @@ def kernel_launches(model: nn.Module) -> dict[str, int]:
     return counts
 
 
+def _rms_rows(x: torch.Tensor, norm: nn.RMSNorm) -> torch.Tensor:
+    """`norm` (an RMSNorm over C features) at every token of x (..., C, L):
+    computed in f32 and cast back before the weight, as Jamba's RMSNorm."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-2, keepdim=True) + norm.eps)
+    return norm.weight.to(x.dtype)[:, None] * y.to(x.dtype)
+
+
 class Mamba(nn.Module):
     """Selective-state-space mixer over (B, L, d_model) token sequences."""
 
@@ -74,7 +86,7 @@ class Mamba(nn.Module):
                  dt_init: str = "random", dt_scale: float = 1.0, dt_init_floor: float = 1e-4,
                  conv_bias: bool = True, bias: bool = False, bimamba_type: str = "v3",
                  nslices: int = 5, dtype: Optional[torch.dtype] = None,
-                 scan_impl: Optional[str] = None,
+                 scan_impl: Optional[str] = None, ssm_norm_eps: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.bimamba_type = "v3" if bimamba_type == "v1" else bimamba_type
@@ -116,6 +128,15 @@ class Mamba(nn.Module):
             setattr(self, f"dt_proj{s}", dt_proj)
             self.register_parameter(f"A{s}_log", nn.Parameter(a_log))
             self.register_parameter(f"D{s}", nn.Parameter(torch.ones(d_in)))
+        self.ssm_norm_eps = ssm_norm_eps
+        if ssm_norm_eps is not None:
+            # Jamba's RMSNorms on dt, B and C, each over its own rows of x_dbl
+            if self.bimamba_type != "none":
+                raise ValueError("ssm_norm_eps: Jamba's dt/B/C norms take one direction "
+                                 f"(bimamba_type 'none'), got {bimamba_type!r}")
+            self.dt_layernorm = nn.RMSNorm(r, ssm_norm_eps)
+            self.b_layernorm = nn.RMSNorm(n, ssm_norm_eps)
+            self.c_layernorm = nn.RMSNorm(n, ssm_norm_eps)
         self.out_proj = nn.Linear(d_in, d_model, bias=bias)
         lecun_normal_(self.out_proj.weight, d_model, g)
         for lin in (self.in_proj, self.out_proj):
@@ -125,7 +146,9 @@ class Mamba(nn.Module):
     @property
     def use_mega(self) -> bool:
         """Whether this module takes the megakernel route (see the module
-        docstring)."""
+        docstring); never with Jamba's dt/B/C norms."""
+        if self.ssm_norm_eps is not None:
+            return False
         return self.scan_impl == "mega" or (self.scan_impl is None and self.d_state % 8 == 0)
 
     def kernel_launches_per_forward(self) -> dict[str, int]:
@@ -172,14 +195,17 @@ class Mamba(nn.Module):
         x_dbl = torch.einsum("bgdl,ged->bgel", x_all.reshape(bsz, g, d_in, length), x_proj)
         if self.tp is not None:  # row-parallel x_proj: the ranks' partial sums
             x_dbl = all_reduce_sum(x_dbl, self.tp)
-        dt = torch.einsum("bgrl,gdr->bgdl", x_dbl[:, :, :r], dt_w).reshape(bsz, g * d_in, length)
+        dt_in, b_in, c_in = x_dbl[:, :, :r], x_dbl[:, :, r:r + n], x_dbl[:, :, r + n:]
+        if self.ssm_norm_eps is not None:
+            dt_in, b_in, c_in = (_rms_rows(v, norm) for v, norm in (
+                (dt_in, self.dt_layernorm), (b_in, self.b_layernorm), (c_in, self.c_layernorm)))
+        dt = torch.einsum("bgrl,gdr->bgdl", dt_in, dt_w).reshape(bsz, g * d_in, length)
         A = -torch.exp(torch.stack([getattr(self, f"A{s}_log") for s in sfx]).float())
         dt_b = torch.cat([getattr(self, f"dt_proj{s}").bias for s in sfx]).float()
         d_skip = torch.cat([getattr(self, f"D{s}") for s in sfx]).float()
         y = selective_scan(
-            x_all, dt, A.reshape(g * d_in, n), x_dbl[:, :, r:r + n], x_dbl[:, :, r + n:],
-            D=d_skip, z=z_all, delta_bias=dt_b, delta_softplus=True,
-            implementation=self.scan_impl,
+            x_all, dt, A.reshape(g * d_in, n), b_in, c_in, D=d_skip, z=z_all, delta_bias=dt_b,
+            delta_softplus=True, implementation=self.scan_impl,
         )
         return y.reshape(bsz, g, d_in, length)
 

@@ -4,7 +4,8 @@ arguments of the config's `models.<name>.branch1` or `branch5` section
 (`give_model_from_config`). Every name of the JAX package's registry is
 ported: MM_Net, dkDualNet, UM_Net, HWAUNETR, UNet, ConvUNeXt (also as
 ConvUNetXt), CFPNet, UNETR, TransUNet, SWINUNETR, FCBFormer, DuAT,
-PVT_CASCADE, CVC_UNETR, BMANet, CFANet and VANet."""
+PVT_CASCADE, CVC_UNETR, BMANet, CFANet and VANet. Beside them, the port's
+own language models, which the JAX registry lacks: Jamba."""
 
 from __future__ import annotations
 
@@ -41,6 +42,13 @@ def _constructors() -> dict:
             "CVC_UNETR": CVC_Unetr, "BMANet": BMANet, "CFANet": CFANet, "VANet": VANet}
 
 
+def _lm_constructors() -> dict:
+    """The port's language models, built by name beside the JAX registry's."""
+    from mm_unet_tpu_torch.models.jamba import JambaForCausalLM
+
+    return {"Jamba": JambaForCausalLM}
+
+
 def give_model(name: str, device: torch.device | str = "cuda",
                generator: Optional[torch.Generator] = None, **kwargs) -> nn.Module:
     """Build `name` with weights drawn from `generator` (on the CPU) and
@@ -69,10 +77,19 @@ def give_model(name: str, device: torch.device | str = "cuda",
     `kernel_size`, `mlp_ratio`, `model_dir`; BMANet `channel` (its width),
     `out_channel`, `model_dir`; CFANet `in_class`, `out_class`, `channel`;
     VANet `cfg`, `embed_dims`, `depths`, `mlp_ratios`, `num_heads`,
-    `strides`, `proj_drop`, `attn_drop`, `drop_path`, `num_class`. A name
-    outside the JAX package's registry raises NotImplementedError."""
-    models = _constructors()
-    if name not in models:
+    `strides`, `proj_drop`, `attn_drop`, `drop_path`, `num_class`. Jamba
+    takes the keys of a Jamba `config.json` (`models/jamba.py`) and is built
+    on `device` itself, its weights drawn there from a generator seeded from
+    `generator`: a billion weights drawn on the CPU would take minutes. So
+    a language model's weights depend on `device` as well as on
+    `generator`: the same generator gives other weights on the card than
+    on the CPU, where every other model's are the same on both. Any other
+    name outside the JAX package's registry raises NotImplementedError.
+    `_lm_constructors` is kept apart from `_constructors`, which holds the
+    JAX registry's names alone (`tests/test_torch_port_cli.py` and
+    `chip_smoke.py`'s registry phase walk it)."""
+    models, lms = _constructors(), _lm_constructors()
+    if name not in models and name not in lms:
         raise NotImplementedError(
             f"model {name!r} is not ported to mm_unet_tpu_torch: the JAX package's registry "
             f"lacks it too (it has {sorted(models)}); see ROADMAP.md"
@@ -83,6 +100,11 @@ def give_model(name: str, device: torch.device | str = "cuda",
             f"give_model({name!r}): no CUDA device here; the port runs on the card unless "
             "the caller asks for the CPU with device='cpu'"
         )
+    if name in lms:
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        seed = int(torch.randint(1 << 62, (), generator=g))
+        with torch.device(device):
+            return lms[name](generator=torch.Generator(device).manual_seed(seed), **kwargs).eval()
     return models[name](generator=generator, **kwargs).to(device).eval()
 
 

@@ -21,6 +21,11 @@ nothing waits on the whole stream until the epoch's closing synchronise.
 
 Each step's phases are timed as the spans `train.data`, `train.step`,
 `train.copy_wait` and `train.metrics` (`utils/spans.py`).
+
+A language model's batch is {"tokens": (B, L) ids}: the ids are both its
+input and its target, the step has no metric statistics
+(`trainer.train_step`), and the epoch counts sequences where it counts
+images.
 """
 
 from __future__ import annotations
@@ -38,10 +43,13 @@ from mm_unet_tpu_torch.utils.spans import span
 
 
 def stage(x, device: torch.device) -> torch.Tensor:
-    """A batch array as f32 on `device`: on the card through pinned host
-    memory with a non-blocking copy (the caching host allocator keeps the
-    pinned block until the copy is done)."""
-    t = torch.as_tensor(x, dtype=torch.float32)
+    """A batch array on `device`, integers (a language model's token ids) as
+    int64 and anything else as f32: on the card through pinned host memory
+    with a non-blocking copy (the caching host allocator keeps the pinned
+    block until the copy is done)."""
+    t = torch.as_tensor(x)
+    integer = not (t.is_floating_point() or t.is_complex() or t.dtype == torch.bool)
+    t = t.to(torch.int64 if integer else torch.float32)
     if device.type != "cuda" or t.is_cuda:
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -87,9 +95,11 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
                     metrics: Mapping, epoch: int = 0, num_epochs: int = 1,
                     tracker=None, stop=None) -> dict:
     """train_loader yields {"image": (B, 3, H, W), "label": (B, 1, H, W)}
-    numpy or torch batches; they are moved to the model's device. Returns
-    the epoch's metric dict: "Train/mean <metric>" for each metric and
-    "Train/images_per_sec". Prints each step's loss and the epoch's metrics.
+    numpy or torch batches, or a language model's {"tokens": (B, L)}; they
+    are moved to the model's device. Returns the epoch's metric dict:
+    "Train/mean <metric>" for each metric (none for a language model, which
+    takes an empty `metrics`) and "Train/images_per_sec". Prints each step's
+    loss and the epoch's metrics.
 
     `tracker` (a `ScalarTracker`) gets each step's scalars as "Train/<name>"
     at the step's count, and the epoch's metrics at the step count after
@@ -109,14 +119,16 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
         with span("train.metrics"):
             if dp is not None:  # the global batch's losses and statistics
                 scalars = dp.host_sum(scalars)
-                stats.update({k: dp.host_gather(stats[k])
-                              for k in ("inter", "psum", "tsum", "weight")})
+                if stats:
+                    stats.update({k: dp.host_gather(stats[k])
+                                  for k in ("inter", "psum", "tsum", "weight")})
             print(f"Epoch [{epoch + 1}/{num_epochs}] Training [{i + 1}/{n_batches}] "
                   f"Loss: {float(scalars['total_loss']):1.5f}", flush=True)
             if tracker is not None:
                 tracker.log({f"Train/{k}": v.item() for k, v in scalars.items()}, step=step)
-            for m in metrics.values():
-                m.update_stats(stats)
+            if stats:
+                for m in metrics.values():
+                    m.update_stats(stats)
 
     batches = iter(train_loader)
     for i in itertools.count():
@@ -125,13 +137,14 @@ def train_one_epoch(state: TrainState, loss_fn: Callable, train_loader: Iterable
         try:
             with span("train.data"):  # the loader's wait included
                 batch = next(batches)
-                n_img += batch["image"].shape[0]
+                keys = ("tokens",) if "tokens" in batch else ("image", "label")
+                n_img += batch[keys[0]].shape[0]
                 weight = None
                 if dp is not None:
-                    batch, weight = shard_batch({"image": batch["image"],
-                                                 "label": batch["label"]}, dp.rank, dp.world)
+                    batch, weight = shard_batch({k: batch[k] for k in keys}, dp.rank, dp.world)
                     weight = stage(weight, device)
-                images, labels = stage(batch["image"], device), stage(batch["label"], device)
+                staged = [stage(batch[k], device) for k in keys]
+                images, labels = staged[0], staged[-1]
         except StopIteration:
             break
         with span("train.step"):

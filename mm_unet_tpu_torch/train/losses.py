@@ -3,7 +3,9 @@ semantics: DiceFocal (the reference's training loss), Dice, focal,
 Tversky, generalized Dice and the DICE+BCE of the reference's mini
 pipeline (with its `DICE_BCE_Loss` name and its `dice_coeff`). Each takes NCHW logits and binary targets of the same shape and
 an optional per-sample `weight` (B,), and returns a scalar (mean over the
-samples, weight-averaged when `weight` is given)."""
+samples, weight-averaged when `weight` is given). Beside them, outside the
+JAX package's registry, a language model's `next_token_loss`
+(`TOKEN_LOSSES`)."""
 
 from __future__ import annotations
 
@@ -126,8 +128,24 @@ def dice_coeff(pred: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5) -
     return (2.0 * inter + smooth) / (pred.sum() + target.sum() + smooth)
 
 
-# the losses `train.trainer.make_loss_fn` can name: the JAX package's
-# LOSS_REGISTRY, under its names
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy of logits (B, L, V) at positions 0..L-2 against the
+    next tokens, tokens (B, L) at 1..L-1: the mean over every predicted
+    token; with `weight` (B,), each sequence's mean weight-averaged
+    (`_wmean`)."""
+    pred, target = logits[:, :-1].flatten(0, 1), tokens[:, 1:].flatten()
+    if weight is None:
+        return F.cross_entropy(pred, target)
+    ce = F.cross_entropy(pred, target, reduction="none").view(tokens.shape[0], -1)
+    return _wmean(ce, weight)
+
+
+# the language models' losses, which the JAX package's registry lacks
+TOKEN_LOSSES = {"next_token_loss": next_token_loss}
+
+# the losses `train.trainer.make_loss_fn` can name, besides TOKEN_LOSSES:
+# the JAX package's LOSS_REGISTRY, under its names
 LOSS_REGISTRY = {
     "dice_focal_loss": dice_focal_loss,
     "dice_loss": dice_loss,

@@ -24,7 +24,7 @@ import torch.nn as nn
 
 from mm_unet_tpu_torch.parallel.mesh import DataParallel
 from mm_unet_tpu_torch.parallel.zero import ZeroAdamW
-from mm_unet_tpu_torch.train.losses import LOSS_REGISTRY
+from mm_unet_tpu_torch.train.losses import LOSS_REGISTRY, TOKEN_LOSSES
 from mm_unet_tpu_torch.train.optim import build_optimizer, set_lr, warmup_cosine_epoch_schedule
 from mm_unet_tpu_torch.utils.spans import span
 from mm_unet_tpu_torch.utils.torch_convert import warm_start
@@ -82,17 +82,20 @@ def create_train_state(model: nn.Module, config: Mapping, seed: int = 0,
 
 
 def make_loss_fn(loss_functions: Mapping[str, Mapping], loss_weights: Mapping[str, float]):
-    """loss_functions: {name: kwargs} over LOSS_REGISTRY entries. The
-    returned fn(logits, labels, weight=None) gives (total, {name: loss})."""
+    """loss_functions: {name: kwargs} over LOSS_REGISTRY entries (and
+    TOKEN_LOSSES'). The returned fn(logits, labels, weight=None) gives
+    (total, {name: loss})."""
+    registry = {**LOSS_REGISTRY, **TOKEN_LOSSES}
 
     def compute(logits, labels, weight=None):
         losses = {}
         total = 0.0
         for name, kwargs in loss_functions.items():
-            base = name if name in LOSS_REGISTRY else name.replace("_loss", "") + "_loss"
-            fn = LOSS_REGISTRY.get(name, LOSS_REGISTRY.get(base))
+            base = name if name in registry else name.replace("_loss", "") + "_loss"
+            fn = registry.get(name, registry.get(base))
             if fn is None:
-                raise KeyError(f"loss {name!r} is not in LOSS_REGISTRY {sorted(LOSS_REGISTRY)}")
+                raise KeyError(f"loss {name!r} is not in LOSS_REGISTRY or TOKEN_LOSSES "
+                               f"{sorted(registry)}")
             val = fn(logits, labels, weight=weight, **kwargs)
             losses[name] = val
             total = total + loss_weights.get(name, 1.0) * val
@@ -134,7 +137,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     w this rank's weight sum and W the global one: a loss that is a
     weighted mean over the samples (`losses._wmean`) then becomes the
     global batch's weighted sum over W. The batch-wide Dice of `dice_bce`
-    is not such a mean and is taken per rank."""
+    is not such a mean and is taken per rank.
+
+    Integer `labels` are a language model's token ids (`loop.stage` keeps
+    them int64; a mask is staged as f32): such a step has no statistics,
+    and the second value is an empty dict."""
     model, dp = state.model, state.dp
     model.train()
     set_lr(state.optimizer, state.schedule(state.step))
@@ -154,4 +161,6 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         state.optimizer.step()
     state.step += 1
     scalars = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+    if not labels.is_floating_point():
+        return scalars, {}
     return scalars, seg_stats(logits.detach(), labels, sample_weight)
